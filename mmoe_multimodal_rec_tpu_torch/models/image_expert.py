@@ -1,0 +1,45 @@
+"""Baseline image expert over native patch rows.
+
+Port of mmoe_multimodal_rec_tpu/models/image_expert.py (ItemImageExpert;
+the HoME ImageExpertWithProjection is a later slice).  ImageNet
+normalization runs on the device over the uint8 (C, ph, pw) rows; samples
+with has_image = 0 enter the ViT as exact zeros.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..config import ImageEncoderConfig
+from .layers import LayerNorm
+from .vit import ViTEncoder
+
+_IMAGENET_MEAN = (0.485, 0.456, 0.406)
+_IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def normalize_patches(patches_u8: torch.Tensor,
+                      has_image: torch.Tensor) -> torch.Tensor:
+    """[B, 196, 768] uint8 + [B] {0,1} -> normalized float32 patch rows."""
+    dev = patches_u8.device
+    # per-channel stats expanded to the (C, 16, 16) row
+    mean = torch.tensor(_IMAGENET_MEAN, device=dev).repeat_interleave(256)
+    std = torch.tensor(_IMAGENET_STD, device=dev).repeat_interleave(256)
+    x = (patches_u8.float() / 255.0 - mean) / std
+    return torch.where(has_image[:, None, None] > 0, x, 0.0)
+
+
+class ItemImageExpert(nn.Module):
+    """ViT -> mean/cls pool -> LN (ref model.py:343-385)."""
+
+    def __init__(self, cfg: ImageEncoderConfig,
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False):
+        super().__init__()
+        self.backbone = ViTEncoder(cfg, dtype, use_flash)
+        self.norm = LayerNorm(cfg.hidden_size, dtype=dtype)
+        self.pool_type = cfg.pool_type
+
+    def forward(self, patches: torch.Tensor) -> torch.Tensor:
+        tokens = self.backbone(patches)
+        vec = tokens.mean(1) if self.pool_type == "mean" else tokens[:, 0]
+        return self.norm(vec)

@@ -1,0 +1,85 @@
+"""Full-model assembly, baseline variant, inference only.
+
+Port of mmoe_multimodal_rec_tpu/models/mmoe.py: two text experts, the image
+expert, the sentence cross expert and two fuse experts stacked in the
+reference order u_doc, i_doc, img_vec, ui_vec, xui, xti (train.py:242-251)
+into the dense-gated two-task head.  The HoME variant, the shared-base text
+layout and top-k gating are later slices and raise here.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from .cross import EnhancedCrossFuse, RobustTextCrossExpert
+from .heads import TwoTaskMMoE
+from .image_expert import ItemImageExpert, normalize_patches
+from .text_expert import TextExpert
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+class ModelOutputs(NamedTuple):
+    logit_good: torch.Tensor
+    logit_best: torch.Tensor
+    aux: Dict[str, torch.Tensor]
+
+
+class MMoERecModel(nn.Module):
+    """batch dict -> (logit_good, logit_best, aux).
+
+    Batch keys (static shapes, built by data/packer.py):
+      user_tokens [Nu, L] int      item_tokens [Ni, L] int
+      user_sent_chunk/user_sent_tok [B, S] int (item_ likewise)
+      patches [B, 196, 768] uint8  has_image [B] int
+    """
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        for name, ported in (("variant", cfg.variant == "baseline"),
+                             ("shared_text_base", not cfg.shared_text_base),
+                             ("gate_type", cfg.gate_type == "dense")):
+            if not ported:
+                raise NotImplementedError(
+                    f"model.{name}={getattr(cfg, name)!r} is not yet ported")
+        d = cfg.text.hidden_size
+        if cfg.image.hidden_size != d:
+            raise ValueError("the experts stack: text and image hidden sizes "
+                             f"must match ({d} vs {cfg.image.hidden_size})")
+        self.cfg = cfg
+        dtype = DTYPES[cfg.compute_dtype]
+        flash = cfg.use_flash_attention
+        self.user_expert = TextExpert(cfg.text, dtype, flash)
+        self.item_expert = TextExpert(cfg.text, dtype, flash)
+        self.img_expert = ItemImageExpert(cfg.image, dtype, flash)
+        self.cross_ui = RobustTextCrossExpert(d, cfg.cross_layers,
+                                              cfg.cross_heads, dtype, flash)
+        self.concat_ui = EnhancedCrossFuse(d, cfg.fuse_depth, cfg.fuse_heads,
+                                           dtype)
+        self.concat_ti = EnhancedCrossFuse(d, cfg.fuse_depth, cfg.fuse_heads,
+                                           dtype)
+        self.head = TwoTaskMMoE(d, cfg.n_experts, cfg.tower_hidden, dtype)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> ModelOutputs:
+        u_sent, u_mask, u_doc = self.user_expert(
+            batch["user_tokens"], batch["user_sent_chunk"],
+            batch["user_sent_tok"])
+        i_sent, i_mask, i_doc = self.item_expert(
+            batch["item_tokens"], batch["item_sent_chunk"],
+            batch["item_sent_tok"])
+        img_vec = self.img_expert(normalize_patches(batch["patches"],
+                                                    batch["has_image"]))
+        ui_vec = self.cross_ui(u_sent, u_mask, i_sent, i_mask)
+        xui = self.concat_ui(u_doc, img_vec)
+        xti = self.concat_ti(i_doc, img_vec)
+        aux = {"u_doc": u_doc, "i_doc": i_doc, "img_vec": img_vec,
+               "ui_vec": ui_vec, "xui": xui, "xti": xti}
+        expert_vecs = torch.stack([u_doc, i_doc, img_vec, ui_vec, xui, xti],
+                                  dim=1)
+        logit_good, logit_best, balance = self.head(expert_vecs)
+        aux["gate_balance"] = balance
+        return ModelOutputs(logit_good.float(), logit_best.float(), aux)

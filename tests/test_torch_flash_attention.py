@@ -1,0 +1,162 @@
+"""The port's packed-qkv attention (mmoe_multimodal_rec_tpu_torch/ops) against
+the JAX package's Pallas kernel run in interpret mode, as
+tests/test_flash_attention.py runs it: the same numpy inputs go through
+both, fp32, atol 2e-5 (the JAX suite's own tolerance against einsum).  On
+the CPU the port's wrapper takes its plain PyTorch version; the CUDA kernel
+itself is held against that plain version by tests/test_torch_cuda.py and
+chip_smoke.py on the card."""
+import importlib
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from mmoe_multimodal_rec_tpu_torch.ops import cuda_lib
+from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as tfa
+
+# the JAX ops package re-exports the function under the module's name
+jfa = importlib.import_module("mmoe_multimodal_rec_tpu.ops.flash_attention")
+
+H = 4
+DH = 64
+D = H * DH
+ATOL = 2e-5
+
+
+def _qkv(b, l, hb, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(b, l, D)).astype(np.float32)
+               for _ in range(3))
+    packed = np.array(jfa.pack_qkv_weights(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), H, hb))
+    return q, k, v, packed
+
+
+def _both(packed, mask, seed, hb, rate):
+    want = jfa.flash_attention_packed(
+        jnp.asarray(packed), None if mask is None else jnp.asarray(mask),
+        seed, H, hb, rate, True)
+    got = tfa.flash_attention_packed(
+        torch.from_numpy(packed), None if mask is None else
+        torch.from_numpy(mask), seed, H, hb, rate)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("hb,l", [(4, 384), (2, 256), (4, 197)])
+def test_packed_matches_jax_interpret(hb, l):
+    b = 2
+    _, _, _, packed = _qkv(b, l, hb)
+    mask = np.zeros((b, l), np.int8)
+    mask[0, -5:] = 1
+    mask[1, l // 3:l // 2] = 1
+    got, want = _both(packed, mask, None, hb, 0.0)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_packed_no_mask_matches_jax_interpret():
+    _, _, _, packed = _qkv(1, 197, 2, seed=3)
+    got, want = _both(packed, None, None, 2, 0.0)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_all_pad_row_gives_uniform_weights():
+    """An all-pad row averages v over the L real keys (the einsum path's
+    answer); at L = 256 the JAX kernel has no zero-padded key tail, so it
+    agrees."""
+    b, l, hb = 2, 256, 2
+    q, k, v, packed = _qkv(b, l, hb, seed=1)
+    mask = np.zeros((b, l), np.int8)
+    mask[1] = 1
+    got, want = _both(packed, mask, None, hb, 0.0)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    np.testing.assert_allclose(got[1], np.broadcast_to(v[1].mean(0), (l, D)),
+                               atol=ATOL)
+    assert np.all(np.isfinite(got))
+
+
+def test_dropout_mask_and_output_match_jax_interpret():
+    b, l, hb, rate, seed = 2, 256, 2, 0.1, 1234
+    _, _, _, packed = _qkv(b, l, hb, seed=2)
+    keep_j = np.asarray(jfa.dropout_keep_mask(seed, b, H, l, l, rate,
+                                              interpret=True))
+    keep_t = tfa.dropout_keep_mask(seed, b, H, l, l, rate).numpy()
+    np.testing.assert_array_equal(keep_t, keep_j)
+    assert abs(keep_t.mean() - (1 - rate)) < 0.01
+    mask = np.zeros((b, l), np.int8)
+    mask[0, -7:] = 1
+    got, want = _both(packed, mask, seed, hb, rate)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    # another seed draws another mask
+    other, _ = _both(packed, mask, seed + 1, hb, rate)
+    assert not np.allclose(other, got)
+
+
+@pytest.mark.parametrize("seed,lq,lk,rate", [(-5, 128, 100, 0.3),
+                                             (2**31 - 1, 8, 130, 0.5)])
+def test_keep_mask_counter_layout(seed, lq, lk, rate):
+    """Negative / large seeds and an unaligned key length (the counter
+    strides over lk rounded up to 128) give JAX's bits too."""
+    keep_j = np.asarray(jfa.dropout_keep_mask(seed, 2, H, lq, lk, rate,
+                                              interpret=True))
+    keep_t = tfa.dropout_keep_mask(seed, 2, H, lq, lk, rate).numpy()
+    np.testing.assert_array_equal(keep_t, keep_j)
+
+
+def test_pack_qkv_weights_exact():
+    rng = np.random.default_rng(5)
+    for hb in (1, 2, 4):
+        w = [rng.normal(size=(48, D)).astype(np.float32) for _ in range(3)]
+        bias = [rng.normal(size=(D,)).astype(np.float32) for _ in range(3)]
+        for parts in (w, bias):
+            want = np.asarray(jfa.pack_qkv_weights(
+                *(jnp.asarray(x) for x in parts), H, hb))
+            got = tfa.pack_qkv_weights(*(torch.from_numpy(x) for x in parts),
+                                       H, hb).numpy()
+            np.testing.assert_array_equal(got, want)
+
+
+def test_head_group_matches_jax():
+    for dh in (32, 64, 128):
+        for h in (1, 2, 3, 4, 6, 8, 12):
+            assert tfa._head_group(dh, h, 6) == jfa._head_group(dh, h, 6)
+
+
+def test_wrapper_rejects_bad_shapes_and_devices():
+    qkv = torch.zeros(1, 128, 3 * D)
+    with pytest.raises(ValueError, match="not a multiple of n_heads"):
+        tfa.flash_attention_packed(qkv, None, None, 5, 1)
+    with pytest.raises(ValueError, match="not a multiple of hb"):
+        tfa.flash_attention_packed(qkv, None, None, H, 3)
+    with pytest.raises(ValueError, match=r"\[B, L, 3D\]"):
+        tfa.flash_attention_packed(torch.zeros(1, 128, 10), None, None, H, 1)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tfa.flash_attention_packed(torch.zeros(1, 100, 3 * D), None, 1, H, 2,
+                                   0.1)
+    # a device with no kernel raises: nothing drops to another path
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tfa.flash_attention_packed(qkv.to("meta"), None, None, H, 2)
+
+
+def test_cpu_tensor_takes_plain_version_without_counting():
+    before = tfa.flash_attention_packed.launches
+    _, _, _, packed = _qkv(1, 128, 2)
+    tfa.flash_attention_packed(torch.from_numpy(packed), None, None, H, 2)
+    assert tfa.flash_attention_packed.launches == before
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    """No CUDA toolkit: the build raises, nothing is loaded in its place."""
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_lib.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_lib.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_lib.build("flash_attention_packed")
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_library_path_tracks_source():
+    a = cuda_lib.library_path("flash_attention_packed")
+    assert a.name.startswith("libflash_attention_packed-")
+    assert a.parent == cuda_lib.BUILD_DIR
+    assert a == cuda_lib.library_path("flash_attention_packed")

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero without the final result line:
   1. device: name, count, and name + power limit from nvidia-smi;
-  2. build: every CUDA kernel of the path from csrc/ (nvcc, sm_90a);
-  3. kernels: each kernel against its plain PyTorch version at the serving
-     path's shapes (bf16 in, the plain version in fp32 on the same inputs),
-     with the kernel's, the plain version's and the library call's times
-     (CUDA events, warm) beside the bound computed from the inputs, per
-     call and for one forward's worth of calls timed back to back;
+  2. build: every CUDA kernel of both paths from csrc/ (one nvcc per
+     source, all started together; sm_90a);
+  3. kernels: each kernel against its plain PyTorch version at the main
+     paths' shapes (bf16 in; the plain forward in fp32 on the same inputs,
+     the plain backward on the same bf16 inputs), with the kernel's, the
+     plain version's and the library call's times (CUDA events, warm)
+     beside the bound computed from the inputs, per call and for one
+     forward's (one micro-batch's) worth of calls timed back to back; the
+     training kernels' dropout mask read back through them;
   4. predictor: the full-width Predictor (batch 64, 2 chunks per sample,
      BERT-base x2 + ViT-base, bf16 compute, seeded init weights) scores a
      few batches on the host clock (and, apart, the host packing of their
@@ -22,7 +26,17 @@ exits non-zero without the final result line:
      attention path; a small fp32 model must agree with the same model on
      the CPU;
   5. server: PredictionServer on 127.0.0.1 answers concurrent POSTs (some
-     with patch_b64) equal to direct predict().
+     with patch_b64) equal to direct predict();
+  6. train: the full-width baseline Trainer (micro-batch 64, grad_accum 2,
+     2 chunks of 384 tokens per sample, BERT-base x2 with LoRA r=8 on
+     query/value + frozen ViT-base, bf16 compute, dropout 0.1, AdamW with
+     the freeze->warmup LoRA group, lora_fused_dropout=false, no remat) on
+     a seeded random batch staged on the card once: 1 warm-up step, 3 steps
+     on the host clock, 1 step under torch.profiler; launches per step of
+     the three kernels checked, losses finite, no micro-batch skipped;
+  7. train_check: the same at 2 text layers, one step on the kernel path
+     and one on the plain attention path, same weights, batch and seeds:
+     loss, grad_norm and LoRA gradient gaps against stated limits.
 Then one JSON line of kernel records, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Needs one card; exits non-zero
 without one, and outside a checkout of the repository.
@@ -30,6 +44,7 @@ without one, and outside a checkout of the repository.
 from __future__ import annotations
 
 import base64
+import concurrent.futures
 import http.client
 import json
 import math
@@ -43,12 +58,30 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak
 KERNEL_TOL = 2e-2               # bf16 output vs the fp32 plain version
-FP32_KERNEL_TOL = 1e-4          # fp32 kernel: summation order, expf
+BWD_TOL = 3e-2                  # bf16 gradients vs the plain backward on
+                                # the same bf16 inputs, of the largest
+                                # reference gradient (ds, p*keep round to
+                                # bf16 from slightly different fp32 values)
+FP32_KERNEL_TOL = 1e-4          # fp32 kernel: summation order, exp2f
 PLAIN_PATH_TOL = 1e-2           # probabilities, kernel vs plain attention
 SMALL_CPU_TOL = 1e-4            # probabilities, fp32 model, GPU vs CPU
 SERVER_TOL = 2e-3               # probabilities, micro-batched vs direct
 TEXT = dict(b=128, l=384, heads=12, dh=64, hb=6, calls=24)
+STEP_MICRO_BATCHES = 2          # grad_accum of the training path
 VIT = dict(b=64, l=197, heads=12, dh=64, hb=6, calls=12)
+# train_check: kernel path vs plain attention path, bf16 end to end
+CHECK_LOSS_TOL = 2e-2           # absolute, on a loss near 1.4
+CHECK_NORM_TOL = 5e-2           # relative grad_norm gap
+# LoRA gradients, over every LoRA tensor: max |dg| / max |g| and
+# ||dg|| / ||g|| (lora_grad_gaps).  The plain path rounds the scores to
+# bf16 before the softmax (as the JAX einsum path does), so the two paths
+# differ by bf16 rounding: 0.054 and 0.047 on an H100 at this phase's
+# shape.  The limits are 2.2x and 2.1x those readings.  A backward that
+# is wrong by a dropout scale on dq and dk alone exceeds them, on a small
+# bf16 model on the CPU (tests/test_torch_train.py)
+CHECK_GRAD_TOL = 0.12
+CHECK_GRAD_L2_TOL = 0.10
+TRAIN_LOSS_RANGE = (0.5, 3.0)   # two weighted BCEs near 2 * ln 2 at init
 
 
 def log(phase: str, **fields) -> None:
@@ -177,6 +210,164 @@ def phase_kernels():
     return (text, vit, drop), forward
 
 
+def split_case(name, b, l, heads, dh, rate, gen, timed=True):
+    """flash_attention forward and backward at one shape, bf16, masked
+    (real lengths spread over [1, L] and one all-pad row)."""
+    import torch
+    import torch.nn.functional as F
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    d = heads * dh
+    q, k, v, g = (torch.randn(b, l, d, generator=gen, device="cuda")
+                  .bfloat16() for _ in range(4))
+    lens = torch.randint(1, l + 1, (b,), generator=gen, device="cuda")
+    pad = torch.arange(l, device="cuda")[None, :] >= lens[:, None]
+    pad[b // 2] = True
+    seed = 1234 if rate > 0 else None
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fwd = lambda: fa.flash_attention(*leaves, pad, seed, heads, rate)
+    out = fwd()
+    _, stats = fa._flash_fwd_cuda(q, k, v, pad, seed, heads, rate, True)
+    bwd = lambda: fa.flash_attention_bwd(q, k, v, pad, seed, g, heads, rate,
+                                         stats)
+    grads = bwd()
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), pad,
+                                       seed, heads, rate)
+    fwd_err = (out.float() - ref).abs().max().item()
+    del ref
+    want = fa.flash_attention_bwd_reference(q, k, v, pad, seed, g, heads,
+                                            rate)
+    bwd_abs = [(a.float() - w.float()).abs().max().item()
+               for a, w in zip(grads, want)]
+    bwd_err = max(e / w.float().abs().max().item()
+                  for e, w in zip(bwd_abs, want))
+    del want
+    check(math.isfinite(fwd_err) and fwd_err <= KERNEL_TOL,
+          f"{name}: forward vs plain max abs err {fwd_err} > {KERNEL_TOL}")
+    check(math.isfinite(bwd_err) and bwd_err <= BWD_TOL,
+          f"{name}: backward vs plain max rel err {bwd_err} > {BWD_TOL}")
+    rec = {"case": name, "b": b, "l": l, "heads": heads, "dh": dh,
+           "rate": rate, "fwd_max_abs_err": fwd_err,
+           "bwd_max_abs_err": max(bwd_abs),
+           "bwd_max_err_of_largest_grad": bwd_err,
+           "tol": [KERNEL_TOL, BWD_TOL]}
+    fns = None
+    if timed:
+        el = q.element_size()
+        mask_bytes = b * l
+        fwd_bytes = 4 * b * l * d * el + mask_bytes + b * heads * l * 8
+        bwd_bytes = 7 * b * l * d * el + mask_bytes + b * heads * l * 8
+        fwd_flops, bwd_flops = 4 * b * l * l * d, 10 * b * l * l * d
+        plain_fwd = lambda: fa.flash_attention_reference(q, k, v, pad, seed,
+                                                         heads, rate)
+        plain_bwd = lambda: fa.flash_attention_bwd_reference(
+            q, k, v, pad, seed, g, heads, rate)
+        # SDPA on [B, H, L, dh] (layout change untimed) with the same
+        # dropout rate; its mask stream differs, the work does not.  The
+        # all-pad row keeps one key: SDPA gives NaN on a fully masked row.
+        heads_first = lambda x: x.reshape(b, l, heads, dh).transpose(1, 2)
+        sq, sk, sv = (heads_first(x).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        sg = heads_first(g).contiguous()
+        keep_keys = torch.arange(l, device="cuda")[None, :] < lens[:, None]
+        attn_mask = keep_keys[:, None, None, :]
+        lib_fwd = lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=attn_mask, dropout_p=rate)
+
+        def lib_fwd_bwd():
+            lib_fwd().backward(sg)
+
+        def bound(nbytes, flops):
+            return (1e3 * max(nbytes / HBM_BYTES_PER_S,
+                              flops / BF16_FLOPS_PER_S),
+                    "bytes" if nbytes / HBM_BYTES_PER_S
+                    >= flops / BF16_FLOPS_PER_S else "operations")
+        fwd_bound, fwd_by = bound(fwd_bytes, fwd_flops)
+        bwd_bound, bwd_by = bound(bwd_bytes, bwd_flops)
+        lib_f = cuda_ms(lib_fwd)
+        rec.update(
+            fwd_ms=cuda_ms(fwd), fwd_plain_ms=cuda_ms(plain_fwd, 2, 1),
+            fwd_library_ms=lib_f, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+            bwd_ms=cuda_ms(bwd), bwd_plain_ms=cuda_ms(plain_bwd, 2, 1),
+            bwd_library_ms=cuda_ms(lib_fwd_bwd) - lib_f,
+            bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
+            fwd_io_bytes=fwd_bytes, bwd_io_bytes=bwd_bytes,
+            fwd_flops=fwd_flops, bwd_flops=bwd_flops)
+        fns = {"fwd": (fwd, plain_fwd, lib_fwd),
+               "bwd": (bwd, plain_bwd, lib_fwd_bwd)}
+    log("split_kernel_check", **rec)
+    return rec, fns
+
+
+def mask_read_back(b, l, heads, dh, rate, seed):
+    """The keep mask read back through both training kernels at the text
+    L and dh: with q = k = 0 every key weighs 1/L.  Forward, v one-hot over
+    a chunk of dh keys: out[b, q, h*dh + j] = keep[b, h, q, c*dh + j] /
+    (L (1 - r)).  Backward, dO one-hot over a chunk of dh query rows:
+    dv[b, key, h*dh + j] = keep[b, h, c*dh + j, key] / (L (1 - r)).  Both
+    must equal dropout_keep_mask, chunk by chunk."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    d = heads * dh
+    z = torch.zeros(b, l, d, device="cuda", dtype=torch.bfloat16)
+    want = fa.dropout_keep_mask(seed, b, heads, l, l, rate, device="cuda")
+    scale = l * (1.0 - rate)
+    for c in range(l // dh):
+        onehot = torch.zeros(b, l, heads, dh, device="cuda")
+        onehot[:, c * dh:(c + 1) * dh] = torch.eye(dh, device="cuda")[
+            :, None, :]
+        onehot = onehot.reshape(b, l, d).bfloat16()
+        vv = onehot.clone().requires_grad_()
+        out = fa.flash_attention(z, z, vv, None, seed, heads, rate)
+        got = out.float().reshape(b, l, heads, dh).permute(0, 2, 1, 3)
+        check(torch.equal(got * scale > 0.5,
+                          want[..., c * dh:(c + 1) * dh]),
+              f"forward keep mask differs in key chunk {c}")
+        out.backward(onehot)
+        dv = vv.grad.float().reshape(b, l, heads, dh).permute(0, 2, 3, 1)
+        check(torch.equal(dv * scale > 0.5,
+                          want[:, :, c * dh:(c + 1) * dh, :]),
+              f"backward keep mask differs in query chunk {c}")
+    return int(want.numel())
+
+
+def phase_split_kernels():
+    """#2 and #3 at the text shape (rates 0.1 and 0), the mask read back
+    through them, and one training step's calls of each (2 micro-batches x
+    24) timed back to back for the kernel, the plain version and SDPA."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    main, fns = split_case("text_dropout_0.1", TEXT["b"], TEXT["l"],
+                           TEXT["heads"], TEXT["dh"], 0.1, gen)
+    rate0, _ = split_case("text_rate_0", TEXT["b"], TEXT["l"], TEXT["heads"],
+                          TEXT["dh"], 0.0, gen, timed=False)
+    n_mask = mask_read_back(4, TEXT["l"], TEXT["heads"], TEXT["dh"], 0.1, 99)
+    log("split_mask_read_back", elements=n_mask, equal=True)
+
+    n_calls = STEP_MICRO_BATCHES * TEXT["calls"]
+
+    def calls(fn):
+        def run():
+            for _ in range(n_calls):
+                fn()
+        return run
+
+    per_step = {}
+    for side in ("fwd", "bwd"):
+        kernel, plain, library = fns[side]
+        lib = cuda_ms(calls(library), iters=3, warmup=1)
+        if side == "bwd":     # SDPA backward = forward + backward - forward
+            lib -= per_step["fwd"]["library_ms"]
+        per_step[side] = {"ms": cuda_ms(calls(kernel), iters=3, warmup=1),
+                          "plain_ms": cuda_ms(calls(plain), iters=1,
+                                              warmup=1),
+                          "library_ms": lib,
+                          "bound_ms": n_calls * main[f"{side}_bound_ms"]}
+    log("split_kernel_step", calls=n_calls, **per_step)
+    torch.cuda.empty_cache()
+    return main, rate0, per_step
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the full-width Predictor
 # ---------------------------------------------------------------------------
@@ -223,26 +414,29 @@ def small_config():
 
 
 def kind_of(kernel_name: str) -> str:
+    """The port's kernels by wrapper (csrc/flash_attention_fwd.cu has one
+    instantiation per layout), then matrix products, then the rest."""
     low = kernel_name.lower()
-    if "packed_attention_fwd" in low:
-        return "attention_kernel"
+    if "attention_bwd" in low:
+        return "flash_attention_bwd"
+    if "attention_fwd" in low:
+        return ("flash_attention" if ", true>" in low
+                else "flash_attention_packed")
     if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
         return "matmul"
     return "other"
 
 
-def profiled(pred, batches):
-    """Score `batches` under torch.profiler: device ms by kind and the top
-    kernels, summed over the window, and the window's host-clock ms."""
+def profiled(fn):
+    """Run fn() under torch.profiler: its result, device ms by kind and the
+    top kernels, summed over the window, and the window's host-clock ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    outs = []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for users, items, patches, has_image in batches:
-            outs.append(pred.predict(users, items, patches, has_image))
+        outs = fn()
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0)
     by_kernel, by_kind = {}, {}
@@ -295,12 +489,13 @@ def phase_predictor(batch: int, forwards: int, profiled_forwards: int):
         pred.packer.pack(users, budget)
         pred.packer.pack(items, budget)
         pack_ms.append(1e3 * (time.perf_counter() - t0))
-    prof_outs, window_ms, by_kind, top = profiled(pred, batches[forwards:])
+    prof_outs, window_ms, by_kind, top = profiled(
+        lambda: [pred.predict(*batch) for batch in batches[forwards:]])
     outs += prof_outs
     launches = fa.flash_attention_packed.launches
     peak = torch.cuda.max_memory_allocated()
     n_fwd = forwards + profiled_forwards + len(pred.buckets)
-    kernel_ms = by_kind.get("attention_kernel", 0.0) / profiled_forwards
+    kernel_ms = by_kind.get("flash_attention_packed", 0.0) / profiled_forwards
     check(kernel_ms > 0, "the profiler saw no attention kernel time")
     device_ms = sum(by_kind.values())
     log("profile", requests=profiled_forwards, window_ms=window_ms,
@@ -432,12 +627,223 @@ def phase_server(pred, n_requests: int = 6, per_request: int = 5):
         max_prob_diff_vs_direct=worst)
 
 
+# ---------------------------------------------------------------------------
+# phases 6 and 7: training
+# ---------------------------------------------------------------------------
+
+def train_config(text_layers: int = 12):
+    """bench.py --mode train's shape (micro-batch 64, grad_accum 2, 2
+    chunks per sample) on the defaults (BERT-base x2 with LoRA r=8 on
+    query/value, ViT-base, bf16 compute, fp32 params, dropout 0.1), with
+    the unfused LoRA dropout and no remat."""
+    from mmoe_multimodal_rec_tpu_torch.config import Config
+    cfg = Config()
+    cfg.train.batch_size = 64
+    cfg.train.optim.grad_accum = 2
+    cfg.model.packer.chunk_budget = 128
+    cfg.model.text.lora_fused_dropout = False
+    cfg.model.text.num_layers = text_layers
+    return cfg
+
+
+def random_batch(cfg, seed: int):
+    """bench.py's random_batch: random token ids in every chunk, ~8
+    sentences per sample routed into its 2 chunks, random patches, 80% with
+    an image, labels at 0.5 / 0.3."""
+    from mmoe_multimodal_rec_tpu_torch.train.loop import dummy_batch
+    b = cfg.train.batch_size
+    n = cfg.model.packer.chunk_budget
+    L = cfg.model.packer.max_tok
+    r = np.random.default_rng(seed)
+    batch = dummy_batch(cfg, batch_size=b)
+    for side in ("user", "item"):
+        batch[f"{side}_tokens"] = r.integers(
+            999, 30000, (n, L)).astype(np.int32)
+        chunks = (np.arange(b) * (n // b))[:, None] + \
+            r.integers(0, max(n // b, 1), (b, 8))
+        batch[f"{side}_sent_chunk"][:, :8] = chunks.astype(np.int32)
+        batch[f"{side}_sent_tok"][:, :8] = r.integers(
+            1, L - 1, (b, 8)).astype(np.int32)
+    batch["patches"] = r.integers(0, 256, (b, 196, 768)).astype(np.uint8)
+    batch["has_image"] = (r.random(b) < 0.8).astype(np.int32)
+    batch["label_good"] = (r.random(b) < 0.5).astype(np.float32)
+    batch["label_best"] = (r.random(b) < 0.3).astype(np.float32)
+    return batch
+
+
+def stacked(cfg, trainer, seed: int):
+    """The batch repeated over grad_accum, staged on the card once."""
+    accum = cfg.train.optim.grad_accum
+    return trainer.to_device({k: np.broadcast_to(v, (accum,) + v.shape)
+                              for k, v in random_batch(cfg, seed).items()})
+
+
+def phase_train(timed_steps: int = 3):
+    """The training main path: counts from 0, 1 warm-up step, `timed_steps`
+    on the host clock, 1 step under torch.profiler, counts read."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    from mmoe_multimodal_rec_tpu_torch.train.loop import Trainer
+    cfg = train_config()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    init_s = time.perf_counter() - t0
+    batch = stacked(cfg, trainer, seed=0)
+    examples = cfg.train.batch_size * cfg.train.optim.grad_accum
+    wrappers = (fa.flash_attention_packed, fa.flash_attention,
+                fa.flash_attention_bwd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    metrics = [trainer.run_step(batch)]
+    warm_s = time.perf_counter() - t0
+    step_ms = []
+    for _ in range(timed_steps):
+        t0 = time.perf_counter()
+        metrics.append(trainer.run_step(batch))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    prof_m, window_ms, by_kind, top = profiled(
+        lambda: trainer.run_step(batch))
+    metrics.append(prof_m)
+    launches = [w.launches for w in wrappers]
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(metrics)
+    for m in metrics:
+        check(math.isfinite(m["loss"]) and TRAIN_LOSS_RANGE[0] < m["loss"]
+              < TRAIN_LOSS_RANGE[1], f"train loss {m['loss']}")
+        check(m["skipped_micro"] == 0, f"skipped micro-batches: {m}")
+    check(trainer.step == steps, f"{trainer.step} optimizer steps, "
+                                 f"expected {steps}")
+    per_step = [n / steps for n in launches]
+    check(per_step == [24.0, 48.0, 48.0],
+          f"launches per step of #1/#2/#3: {per_step}, expected 24/48/48")
+    device_ms = sum(by_kind.values())
+    ms_sorted = sorted(step_ms)
+    log("train", examples_per_step=examples, steps=steps, init_s=init_s,
+        warmup_step_s=warm_s, step_ms=step_ms,
+        examples_per_sec=examples / (ms_sorted[len(ms_sorted) // 2] / 1e3),
+        peak_bytes=peak, launches=launches, launches_per_step=per_step,
+        losses=[m["loss"] for m in metrics],
+        grad_norms=[m["grad_norm"] for m in metrics])
+    log("train_profile", window_ms=window_ms, device_ms=device_ms,
+        device_busy_share=device_ms / window_ms,
+        device_ms_by_kind=by_kind, top_kernels_ms=top)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return launches, by_kind
+
+
+def check_trainer(cfg, device: str):
+    """A Trainer whose LoRA B is seeded non-zero, so that every LoRA
+    gradient is non-trivial, and its LoRA parameters by name."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.train.loop import Trainer
+    trainer = Trainer(cfg, device=device)
+    gen = torch.Generator().manual_seed(7)
+    lora = {k: p for k, p in trainer.trainable.items() if "lora_" in k}
+    with torch.no_grad():
+        for k, p in lora.items():
+            if k.endswith("lora_b"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+    return trainer, lora
+
+
+def micro_lora_grads(trainer, lora, micro):
+    """One micro-batch's loss, in training mode with step 0's first dropout
+    stream, and its gradients of the LoRA parameters."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.train.losses import total_loss
+    from mmoe_multimodal_rec_tpu_torch.train.loop import dropout_generator
+    cfg = trainer.cfg
+    out = trainer.model(micro, deterministic=False,
+                        rng=dropout_generator(cfg.train.seed + 1, 0, 0))
+    loss = total_loss(out.logit_good, out.logit_best, micro["label_good"],
+                      micro["label_best"], cfg.train.loss).total
+    grads = torch.autograd.grad(loss, list(lora.values()))
+    return loss.item(), dict(zip(lora, grads))
+
+
+def lora_grad_gaps(got, want):
+    """The largest, over LoRA tensors, of max |dg| / max |g| and of
+    ||dg|| / ||g||."""
+    pairs = [(got[k].float(), want[k].float()) for k in want]
+    return (max((g - w).abs().max().item() / w.abs().max().item()
+                for g, w in pairs),
+            max((g - w).norm().item() / w.norm().item() for g, w in pairs))
+
+
+def phase_train_check(text_layers: int = 2):
+    """One step at full width and `text_layers` text layers on the kernel
+    path and on the plain attention path (use_flash_attention=false:
+    einsum attention whose dropout hashes the same counters), from the same
+    weights, batch and seeds: the first micro-batch's loss and LoRA
+    gradients, then the whole step's loss and grad_norm."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    runs = {}
+    for flash in (True, False):
+        cfg = train_config(text_layers)
+        cfg.model.use_flash_attention = flash
+        trainer, lora = check_trainer(cfg, "cuda")
+        batch = stacked(cfg, trainer, seed=1)
+        before = (fa.flash_attention.launches,
+                  fa.flash_attention_bwd.launches)
+        loss, grads = micro_lora_grads(trainer, lora,
+                                       {k: v[0] for k, v in batch.items()})
+        step = trainer.run_step(batch)
+        launched = (fa.flash_attention.launches - before[0],
+                    fa.flash_attention_bwd.launches - before[1])
+        check(launched[0] > 0 if flash else launched == (0, 0),
+              f"flash={flash}: launches {launched}")
+        runs[flash] = (loss, grads, step)
+        del trainer, lora, batch, grads
+        torch.cuda.empty_cache()
+    (lk, gk, sk), (lp, gp, sp) = runs[True], runs[False]
+    grad_gap, grad_gap_l2 = lora_grad_gaps(gk, gp)
+    rec = {"text_layers": text_layers, "micro_loss": [lk, lp],
+           "micro_loss_gap": abs(lk - lp), "step_loss": [sk["loss"],
+                                                         sp["loss"]],
+           "step_loss_gap": abs(sk["loss"] - sp["loss"]),
+           "grad_norm": [sk["grad_norm"], sp["grad_norm"]],
+           "grad_norm_rel_gap": abs(sk["grad_norm"] - sp["grad_norm"])
+           / sp["grad_norm"],
+           "lora_grad_max_rel_gap": grad_gap,
+           "lora_grad_l2_rel_gap": grad_gap_l2,
+           "tol": {"loss": CHECK_LOSS_TOL, "grad_norm": CHECK_NORM_TOL,
+                   "lora_grad": CHECK_GRAD_TOL,
+                   "lora_grad_l2": CHECK_GRAD_L2_TOL}}
+    log("train_check", **rec)
+    check(rec["micro_loss_gap"] <= CHECK_LOSS_TOL
+          and rec["step_loss_gap"] <= CHECK_LOSS_TOL, "loss gap")
+    check(rec["grad_norm_rel_gap"] <= CHECK_NORM_TOL, "grad_norm gap")
+    check(grad_gap <= CHECK_GRAD_TOL and grad_gap_l2 <= CHECK_GRAD_L2_TOL,
+          "LoRA gradient gap")
+    return rec
+
+
+def build_all(names):
+    """One nvcc per source, all started together."""
+    from mmoe_multimodal_rec_tpu_torch.ops import cuda_lib
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(cuda_lib.build, names)))
+    seconds = time.perf_counter() - t0
+    for name, lib in libs.items():
+        ptxas = [ln.strip() for ln in
+                 lib.with_name(lib.name + ".log").read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log("build", source=f"csrc/{name}.cu", seconds=seconds,
+            library=lib.name, ptxas=ptxas)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from mmoe_multimodal_rec_tpu_torch.ops import cuda_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -445,31 +851,55 @@ def main() -> int:
     smi = nvidia_smi()
     log("device", name=name, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
-
-    t0 = time.perf_counter()
-    lib = cuda_lib.build("flash_attention_packed")
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             lib.with_name(lib.name + ".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", seconds=build_s, library=lib.name, ptxas=ptxas)
+    build_all(("flash_attention_fwd", "flash_attention_bwd"))
 
     (text, vit, drop), forward = phase_kernels()
+    split, split0, split_step = phase_split_kernels()
     pred, launches, kernel_ms = phase_predictor(batch=64, forwards=3,
                                                 profiled_forwards=2)
     phase_server(pred)
+    del pred
+    torch.cuda.empty_cache()
+    train_launches, train_ms = phase_train()
+    phase_train_check()
 
     calls = lambda key: TEXT["calls"] * text[key] + VIT["calls"] * vit[key]
+    source = "mmoe_multimodal_rec_tpu_torch/csrc/"
+    replaces = "mmoe_multimodal_rec_tpu/ops/flash_attention.py:"
+    for wrapper in ("flash_attention", "flash_attention_bwd"):
+        check(train_ms.get(wrapper, 0.0) > 0,
+              f"no device time of {wrapper} in the profiled training step")
+    split_records = []
+    for side, wrapper, line, err in (
+            ("fwd", "flash_attention", 229,
+             max(split["fwd_max_abs_err"], split0["fwd_max_abs_err"])),
+            ("bwd", "flash_attention_bwd", 374,
+             max(split["bwd_max_abs_err"], split0["bwd_max_abs_err"]))):
+        step = split_step[side]
+        split_records.append({
+            "name": wrapper, "route": "cuda",
+            "source": f"{source}flash_attention_{side}.cu",
+            "replaces": f"{replaces}{line}",
+            "launches": train_launches[1 if side == "fwd" else 2],
+            "max_abs_err": err,
+            # per training step (2 micro-batches x 24 calls).  ms: the
+            # kernel's device time in the train phase's profiled step; the
+            # rest: one step's worth of calls timed back to back
+            "ms": train_ms[wrapper], "ms_back_to_back": step["ms"],
+            "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
+            "bound_ms": step["bound_ms"],
+            "bound_by": split[f"{side}_bound_by"],
+            "per_call": {k[len(side) + 1:]: v for k, v in split.items()
+                         if k.startswith(side + "_")}})
     print(json.dumps({"kernels": [{
         "name": "flash_attention_packed", "route": "cuda",
-        "source": "mmoe_multimodal_rec_tpu_torch/csrc/"
-                  "flash_attention_packed.cu",
-        "replaces": "mmoe_multimodal_rec_tpu/ops/flash_attention.py:446",
-        "launches": launches,
+        "source": f"{source}flash_attention_fwd.cu",
+        "replaces": f"{replaces}446",
+        "launches": launches, "launches_train": train_launches[0],
         "max_abs_err": max(text["max_abs_err"], vit["max_abs_err"],
                            drop["max_abs_err"]),
-        # per forward (24 text + 12 ViT calls).  ms: the kernel's device
-        # time in the main path's profiled forwards; the rest: one
+        # per serving forward (24 text + 12 ViT calls).  ms: the kernel's
+        # device time in the main path's profiled forwards; the rest: one
         # forward's worth of calls timed back to back (phase_kernels)
         "ms": kernel_ms, "ms_back_to_back": forward["ms"],
         "plain_ms": forward["plain_ms"], "library_ms": forward["library_ms"],
@@ -480,7 +910,7 @@ def main() -> int:
                                  ("ms", "plain_ms", "bound_ms",
                                   "library_ms", "max_abs_err")}
                      for c in (text, vit, drop)},
-    }]}), flush=True)
+    }] + split_records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

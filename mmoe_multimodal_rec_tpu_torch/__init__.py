@@ -3,15 +3,20 @@ mmoe_multimodal_rec_tpu for NVIDIA Hopper (H100).
 
 Module paths and class names mirror the JAX package, so each module's
 counterpart is easy to find; nothing here imports jax or the JAX package.
-This slice ports the LoRA-merged serving path:
+Ported so far, the LoRA-merged serving path and the baseline training
+step:
 
-- config + host text packing (copies of the JAX package's jax-free modules)
-                                                        -> `config.py`, `data/`
-- the packed-qkv self-attention kernel, hand-written CUDA for sm_90a,
-  with its plain PyTorch version                        -> `ops/`, `csrc/`
-- the baseline MMoE model, inference only               -> `models/`
-- LoRA merge + JAX param conversion                     -> `utils/`
-- Predictor + HTTP server, CLI `serve`                  -> `eval/`, `cli.py`
+- config, host text packing and the shard data path (copies of the JAX
+  package's jax-free modules)                           -> `config.py`, `data/`
+- the self-attention kernels, hand-written CUDA for sm_90a, with their
+  plain PyTorch versions: packed-qkv forward, split-q/k/v forward and
+  backward with in-kernel dropout                       -> `ops/`, `csrc/`
+- the baseline MMoE model with its dropout sites        -> `models/`
+- losses, optimizer groups, the accumulated step, the
+  Trainer, checkpoints, preemption                      -> `train/`
+- LoRA merge, JAX param conversion, metrics logging     -> `utils/`
+- Predictor + HTTP server                               -> `eval/`
+- CLI `synth`, `train`, `serve`                         -> `cli.py`
 """
 
 __version__ = "0.1.0"

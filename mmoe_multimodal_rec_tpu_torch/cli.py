@@ -1,12 +1,18 @@
-"""Command-line entry point of the PyTorch port: `serve` only so far.
+"""Command-line entry point of the PyTorch port: `synth`, `train`, `serve`.
 
+  python -m mmoe_multimodal_rec_tpu_torch synth --output=shards --samples=48
+  python -m mmoe_multimodal_rec_tpu_torch train \\
+      --data.train_pattern='shards/*.tar.gz' --data.allow_hash_tokenizer=true \\
+      --model.text.lora_fused_dropout=false
   python -m mmoe_multimodal_rec_tpu_torch serve --batch-size=64 \\
       --data.allow_hash_tokenizer=true
 
-takes the JAX CLI's serve flags and dotted config overrides.  Loading a
-checkpoint (orbax or reference .pt) is not yet ported: with no checkpoint the
-server scores with seeded init weights, as the JAX CLI does when it finds
-none.
+Each takes the JAX CLI's flags and dotted config overrides; `train` and
+`serve` also take `--device` (default cuda; cpu runs the plain PyTorch
+path).  `train` writes the port's own torch checkpoints and resumes from
+them.  `serve` does not load a checkpoint yet (orbax, reference .pt or the
+port's): with none it scores with seeded init weights, as the JAX CLI does
+when it finds none.
 """
 from __future__ import annotations
 
@@ -26,6 +32,43 @@ def _split_flags(argv: List[str]):
         (cfg_flags if (a.startswith("--") and "=" in a and
                        "." in a.split("=")[0]) else rest).append(a)
     return cfg_flags, rest
+
+
+def cmd_synth(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--output", required=True)
+    ap.add_argument("--samples", type=int, default=1024)
+    ap.add_argument("--samples-per-shard", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--signal", action="store_true",
+                    help="plant an 85%%-correlated sentiment cue in the "
+                         "user text so label_good is learnable from text")
+    args = ap.parse_args(argv)
+    from .data.synthetic import write_synthetic_shards
+    paths = write_synthetic_shards(args.output, args.samples,
+                                   args.samples_per_shard, args.seed,
+                                   signal=args.signal)
+    print(json.dumps({"shards": len(paths)}))
+    return 0
+
+
+def cmd_train(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--multihost", action="store_true",
+                    help="multi-host training (not yet ported)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (cpu runs the plain "
+                         "PyTorch path)")
+    cfg_flags, rest = _split_flags(argv)
+    args = ap.parse_args(rest)
+    cfg = Config.from_flags(cfg_flags)
+    if args.multihost:
+        raise NotImplementedError("--multihost is not yet ported")
+    from .train.loop import train_from_config
+    result = train_from_config(cfg, device=args.device)
+    print(json.dumps({"examples_per_sec": result["examples_per_sec"],
+                      "epoch_losses": result["epoch_losses"]["total"]}))
+    return 0
 
 
 def cmd_serve(argv: List[str]) -> int:
@@ -106,7 +149,7 @@ def cmd_serve(argv: List[str]) -> int:
     return 0
 
 
-COMMANDS = {"serve": cmd_serve}
+COMMANDS = {"synth": cmd_synth, "train": cmd_train, "serve": cmd_serve}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

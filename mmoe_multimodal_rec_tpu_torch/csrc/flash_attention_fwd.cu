@@ -1,18 +1,33 @@
-// Packed-qkv self-attention forward for Hopper (sm_90a).
+// Self-attention forward for Hopper (sm_90a), packed-qkv and split-q/k/v.
 //
-// Replaces the Pallas TPU kernel mmoe_multimodal_rec_tpu/ops/flash_attention.py
-// `_fused_attention_fwd_packed_impl` -> `_fwd_kernel_packed` -> `_head_fwd`
-// (public API `flash_attention_packed`).  Python wrapper and plain PyTorch
-// version: mmoe_multimodal_rec_tpu_torch/ops/flash_attention.py.
+// Replaces two Pallas TPU kernels of mmoe_multimodal_rec_tpu/ops/
+// flash_attention.py, which share one body (`_head_fwd`):
+// - `_fused_attention_fwd_packed_impl` -> `_fwd_kernel_packed` (public API
+//   `flash_attention_packed`, the serving path's ViT and merged-LoRA text);
+// - `_fused_attention_fwd_impl` -> `_fwd_kernel` (public API
+//   `flash_attention`, the training path's text self-attention, with dropout).
+// Python wrappers and plain PyTorch versions:
+// mmoe_multimodal_rec_tpu_torch/ops/flash_attention.py.
 //
 // What it computes, per (batch row b, head h):
-//   out[b, :, h*dh:(h+1)*dh] = softmax(Q K^T / sqrt(dh), pad keys -> -1e9) V
-// with q/k/v read straight from the GROUP-INTERLEAVED qkv [B, L, 3D] layout
-// that pack_qkv_weights builds: head group g = h / hb, w = hb*dh, and this
-// head's q columns start at g*3w + (h % hb)*dh, k at +w, v at +2w.
+//   out[b, :, h*dh:(h+1)*dh] = dropout(softmax(Q K^T / sqrt(dh),
+//                                      pad keys -> -1e9)) V
+// with q/k/v read in place from their projection layouts.  Head h's columns
+// start at (h / hb) * group_stride + (h % hb) * dh of each row, rows are
+// row_stride apart, and q, k and v have their own base pointers:
+// - packed (group-interleaved qkv [B, L, 3D] from pack_qkv_weights): q = qkv,
+//   k = qkv + w, v = qkv + 2w, row_stride 3D, group_stride 3w (w = hb*dh);
+// - split (q, k, v [B, L, D] each): row_stride D, hb = H, group_stride 0.
+// The output is [B, L, D] head-major.  Optionally the softmax statistics of
+// every row are written for the backward (csrc/flash_attention_bwd.cu):
+// stats[(b*H + h)*L + q] = (m, l), the row max of the base-2 scores
+// s*log2(e)/sqrt(dh) and the row sum of exp2(s - m) over all keys.  The
+// backward rebuilds p = exp2(s - m) / l exactly as this kernel made it.  A
+// single log-sum-exp would not do: an all-pad row has m = -1e9, where fp32
+// cannot hold m + log2(l) apart from m.
 //
-// Bound on this card: at the serving shapes (text B=128, L=384, D=768;
-// ViT B=64, L=197) each call must move the qkv once and the output once
+// Bound on this card: at the main path's shapes (text B=128, L=384, D=768;
+// ViT B=64, L=197) each call must move q, k, v once and the output once
 // (302 MB text, 77.5 MB ViT) against 58 / 7.6 GFLOP of matmul, so it is
 // memory-bound at the H100's 3.35 TB/s (90 us text, 23 us ViT); the tensor
 // cores would need only 59 / 8 us.  The design keeps the [L, L] score matrix
@@ -22,7 +37,7 @@
 // once per q tile (the re-reads of one head's k/v, 2*L*dh*2 = 98 KB, hit
 // L2: blocks of one (b, h) are adjacent in the grid).
 //
-// bf16 (the serving path): FlashAttention-2 style.  Each warp owns 16 query
+// bf16 (the main path): FlashAttention-2 style.  Each warp owns 16 query
 // rows; QK^T and PV run on the tensor cores as mma.sync m16n8k16 (bf16 in,
 // fp32 accumulate) with the scores, the probabilities and the output
 // accumulator held in registers (the score accumulator is reused as the A
@@ -34,26 +49,27 @@
 //
 // Semantics:
 // - Softmax is the exact max-shifted form (the JAX kernel's
-//   MMOE_SAFE_SOFTMAX=1 branch); it equals the default exp(clip(s, +-60))
-//   form whenever |s| < 60.
+//   MMOE_SAFE_SOFTMAX=1 branch), in base 2; it equals the default
+//   exp(clip(s, +-60)) form whenever |s| < 60.
 // - A padded key's score is REPLACED by -1e9 (equal to adding the -1e9
 //   bias whenever the row has a real key, since exp underflows to 0 either
 //   way).  So an all-pad row gives exactly uniform weights over the L real
 //   keys, as the einsum path (models/layers._dot_product_attention) does.
 //   The JAX kernel differs there when L is not a multiple of 128: it also
-//   spreads weight over its zero-padded key tail.  The serving path never
-//   meets the difference: text L = 384 has no pad tail, the ViT no mask.
+//   spreads weight over its zero-padded key tail.
 // - The ragged tail (L = 197) is handled by bounds, not by padding L:
 //   keys >= L score -inf, q rows >= L are not stored.
-// - Dropout (rate > 0, L a multiple of 128): the keep mask is the JAX
-//   interpret-mode murmur hash (`_keep_mask(use_prng=False)`), keyed on
-//   ((b*H + h)*L + q)*L + k, keep = bits >= threshold.  The row sum counts
-//   every key, kept or dropped, and 1/(1-rate) rides the epilogue, as in
-//   `_head_fwd`.  Masks are bit-identical to the JAX interpret mode.
+// - Dropout: the keep mask is the JAX interpret-mode murmur hash
+//   (`_keep_mask(use_prng=False)`), keyed on ((b*H + h)*L + q)*lk_pad + k
+//   with lk_pad = L rounded up to 128, keep = bits >= threshold.  The
+//   counter depends on the position only, so q may be tiled freely.  The
+//   row sum counts every key, kept or dropped, and 1/(1-rate) rides the
+//   epilogue, as in `_head_fwd`.  Masks are bit-identical to the JAX
+//   interpret mode.
 //
-// C interface (ctypes): mmoe_flash_attention_packed returns cudaError_t as
-// an int; 0 means the launch was accepted.  It launches on the given
-// stream, does not synchronise and allocates nothing.
+// C interface (ctypes): mmoe_flash_attention_fwd returns cudaError_t as an
+// int; 0 means the launch was accepted.  It launches on the given stream,
+// does not synchronise and allocates nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +86,22 @@ constexpr float NEG_MASK = -1e9f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
+
+// Where one (b, h) head's rows live, and what the call does with them.
+template <typename T>
+struct Args {
+  const T* q;
+  const T* k;
+  const T* v;
+  const uint8_t* pad;  // [B, L], 1 = padded key; may be null
+  T* out;              // [B, L, H*DH]
+  float2* stats;       // [B, H, L] (m, l); may be null
+  int L, H, hb, row_stride, group_stride, lk_pad;
+  float scale2;        // log2(e) / sqrt(dh)
+  uint32_t seed, threshold;
+  float keep_scale;    // 1 / (1 - rate)
+  int dropout;
+};
 
 // ops/flash_attention.py:_hash_bits over one uint32 counter.
 __device__ __forceinline__ uint32_t hash_bits(uint32_t x, uint32_t seed) {
@@ -92,6 +124,12 @@ __device__ __forceinline__ float masked_score(float dot, float scale,
 __device__ __forceinline__ float key_bias(const uint8_t* pad_b, int key,
                                           int L) {
   return key >= L ? -INFINITY : (pad_b && pad_b[key]) ? NEG_MASK : 0.0f;
+}
+
+// Column offset of head h in a row.
+__device__ __forceinline__ size_t head_col(int h, int hb, int group_stride,
+                                           int dh) {
+  return (size_t)(h / hb) * group_stride + (size_t)(h % hb) * dh;
 }
 
 // ---------------------------------------------------------------------------
@@ -180,13 +218,14 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int row0,
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-packed_attention_fwd_bf16(const bf16* __restrict__ qkv,
-                          const uint8_t* __restrict__ pad,
-                          bf16* __restrict__ out, int L, int H, int hb,
-                          float scale, uint32_t seed, uint32_t threshold,
-                          float keep_scale, int dropout) {
+// SPLIT: q/k/v of their own [B, L, D] (head h at column h*DH), and the
+// softmax statistics stored when asked; else the packed layout, which never
+// stores them (serving has no backward).  Two instantiations, so a profile
+// tells #1 and #2 apart, and the packed one keeps its lower register count.
+// At dh 64, at most 128 registers a thread: 4 blocks (16 warps) per SM.
+template <int DH, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, DH == 64 ? 4 : 1)
+attention_fwd_bf16(const Args<bf16> a) {
   using Lay = MmaLayout<DH>;
   constexpr int LD = Lay::LD;
   constexpr int KD = DH / 16;  // k16 steps of QK^T
@@ -197,17 +236,18 @@ packed_attention_fwd_bf16(const bf16* __restrict__ qkv,
   bf16* kvs = reinterpret_cast<bf16*>(smem + Lay::kv);
   float* biases = reinterpret_cast<float*>(smem + Lay::bias);
 
+  const int L = a.L;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int D = H * DH;
-  const int w = hb * DH;
-  const int row_stride = 3 * D;
-  const bf16* qsrc = qkv + (size_t)b * L * row_stride + (h / hb) * 3 * w +
-                     (h % hb) * DH;
-  const bf16* ksrc = qsrc + w;
-  const bf16* vsrc = qsrc + 2 * w;
-  const uint8_t* pad_b = pad ? pad + (size_t)b * L : nullptr;
+  const int D = a.H * DH;
+  const size_t base = (size_t)b * L * a.row_stride +
+                      (SPLIT ? (size_t)h * DH
+                             : head_col(h, a.hb, a.group_stride, DH));
+  const bf16* qsrc = a.q + base;
+  const bf16* ksrc = a.k + base;
+  const bf16* vsrc = a.v + base;
+  const uint8_t* pad_b = a.pad ? a.pad + (size_t)b * L : nullptr;
   const int nk = (L + BK - 1) / BK;
 
   const int warp = threadIdx.x / 32;
@@ -221,24 +261,25 @@ packed_attention_fwd_bf16(const bf16* __restrict__ qkv,
   auto load_kv = [&](int kt) {
     const int stage = kt & 1;
     bf16* ks = kvs + stage * 2 * Lay::TILE;
-    cp_tile<DH>(ks, ksrc, kt * BK, L, row_stride);
-    cp_tile<DH>(ks + Lay::TILE, vsrc, kt * BK, L, row_stride);
+    cp_tile<DH>(ks, ksrc, kt * BK, L, a.row_stride);
+    cp_tile<DH>(ks + Lay::TILE, vsrc, kt * BK, L, a.row_stride);
     for (int i = threadIdx.x; i < BK; i += THREADS)
       biases[stage * BK + i] = key_bias(pad_b, kt * BK + i, L);
     cp_async_commit();
   };
 
-  cp_tile<DH>(qs, qsrc, q0, L, row_stride);
+  cp_tile<DH>(qs, qsrc, q0, L, a.row_stride);
   load_kv(0);  // one group: q and the first k/v tile
 
   // this lane's two rows, and their dropout counters at key 0 (uint32
   // wrap, as in JAX)
   const int row0 = q0 + warp * 16 + g;
   const int row1 = row0 + 8;
-  const uint32_t bh = (uint32_t)b * (uint32_t)H + (uint32_t)h;
-  const uint32_t kbase0 = (bh * (uint32_t)L + (uint32_t)row0) * (uint32_t)L;
-  const uint32_t kbase1 = (bh * (uint32_t)L + (uint32_t)row1) * (uint32_t)L;
-  const float scale2 = scale * LOG2E;  // softmax in base 2
+  const uint32_t bh = (uint32_t)b * (uint32_t)a.H + (uint32_t)h;
+  const uint32_t kbase0 =
+      (bh * (uint32_t)L + (uint32_t)row0) * (uint32_t)a.lk_pad;
+  const uint32_t kbase1 =
+      (bh * (uint32_t)L + (uint32_t)row1) * (uint32_t)a.lk_pad;
 
   uint32_t qf[KD][4];
   float o[NO][4];
@@ -286,7 +327,8 @@ packed_attention_fwd_bf16(const bf16* __restrict__ qkv,
     for (int j = 0; j < NS; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = masked_score(s[j][e], scale2, bias[j * 8 + 2 * qd + (e & 1)]);
+        s[j][e] = masked_score(s[j][e], a.scale2,
+                               bias[j * 8 + 2 * qd + (e & 1)]);
         tmax[e / 2] = fmaxf(tmax[e / 2], s[j][e]);
       }
     }
@@ -315,9 +357,10 @@ packed_attention_fwd_bf16(const bf16* __restrict__ qkv,
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(s[j][e] - m[e / 2]);
         l[e / 2] += p;
-        if (dropout) {
+        if (a.dropout) {
           const uint32_t key = (uint32_t)(kt * BK + j * 8 + 2 * qd + (e & 1));
-          if (hash_bits((e < 2 ? kbase0 : kbase1) + key, seed) < threshold)
+          if (hash_bits((e < 2 ? kbase0 : kbase1) + key, a.seed) <
+              a.threshold)
             p = 0.0f;
         }
         s[j][e] = p;
@@ -352,9 +395,14 @@ packed_attention_fwd_bf16(const bf16* __restrict__ qkv,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  const float inv0 = keep_scale / l[0];
-  const float inv1 = keep_scale / l[1];
-  bf16* orow0 = out + ((size_t)b * L + row0) * D + h * DH + 2 * qd;
+  if (SPLIT && a.stats && qd == 0) {
+    float2* st = a.stats + (size_t)bh * L;
+    if (row0 < L) st[row0] = make_float2(m[0], l[0]);
+    if (row1 < L) st[row1] = make_float2(m[1], l[1]);
+  }
+  const float inv0 = a.keep_scale / l[0];
+  const float inv1 = a.keep_scale / l[1];
+  bf16* orow0 = a.out + ((size_t)b * L + row0) * D + h * DH + 2 * qd;
   bf16* orow1 = orow0 + (size_t)8 * D;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -368,7 +416,7 @@ packed_attention_fwd_bf16(const bf16* __restrict__ qkv,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: plain FMA kernel (exact checks; not on the serving path)
+// fp32: plain FMA kernel (exact checks; not on the main path)
 // ---------------------------------------------------------------------------
 
 template <int DH>
@@ -403,11 +451,7 @@ __device__ __forceinline__ void load_tile_fp32(float* dst, const float* src,
 
 template <int DH>
 __global__ void __launch_bounds__(THREADS)
-packed_attention_fwd_fp32(const float* __restrict__ qkv,
-                          const uint8_t* __restrict__ pad,
-                          float* __restrict__ out, int L, int H, int hb,
-                          float scale, uint32_t seed, uint32_t threshold,
-                          float keep_scale, int dropout) {
+attention_fwd_fp32(const Args<float> a) {
   using Lay = Fp32Layout<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + Lay::q);
@@ -417,35 +461,34 @@ packed_attention_fwd_fp32(const float* __restrict__ qkv,
   float* os = reinterpret_cast<float*>(smem + Lay::o);
   float* bias = reinterpret_cast<float*>(smem + Lay::bias);
 
+  const int L = a.L;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int D = H * DH;
-  const int w = hb * DH;
-  const int row_stride = 3 * D;
-  const float* qsrc = qkv + (size_t)b * L * row_stride + (h / hb) * 3 * w +
-                      (h % hb) * DH;
-  const float* ksrc = qsrc + w;
-  const float* vsrc = qsrc + 2 * w;
-  const uint8_t* pad_b = pad ? pad + (size_t)b * L : nullptr;
+  const int D = a.H * DH;
+  const size_t base = (size_t)b * L * a.row_stride +
+                      head_col(h, a.hb, a.group_stride, DH);
+  const float* ksrc = a.k + base;
+  const float* vsrc = a.v + base;
+  const uint8_t* pad_b = a.pad ? a.pad + (size_t)b * L : nullptr;
 
-  load_tile_fp32<DH>(qs, qsrc, q0, L, row_stride);
+  load_tile_fp32<DH>(qs, a.q + base, q0, L, a.row_stride);
   for (int i = threadIdx.x; i < BQ * DH; i += THREADS) os[i] = 0.0f;
 
   // lane pair (2r', 2r'+1) of warp w owns row r = 16w + r'; each lane takes
   // every other column
   const int r = (threadIdx.x / 32) * 16 + (threadIdx.x % 32) / 2;
   const int half = threadIdx.x % 2;
+  const uint32_t bh = (uint32_t)b * (uint32_t)a.H + (uint32_t)h;
   const uint32_t key_base =
-      (((uint32_t)b * (uint32_t)H + (uint32_t)h) * (uint32_t)L +
-       (uint32_t)(q0 + r)) * (uint32_t)L;
+      (bh * (uint32_t)L + (uint32_t)(q0 + r)) * (uint32_t)a.lk_pad;
   float m = -INFINITY;
   float l = 0.0f;
 
   for (int k0 = 0; k0 < L; k0 += BK) {
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile_fp32<DH>(ks, ksrc, k0, L, row_stride);
-    load_tile_fp32<DH>(vs, vsrc, k0, L, row_stride);
+    load_tile_fp32<DH>(ks, ksrc, k0, L, a.row_stride);
+    load_tile_fp32<DH>(vs, vsrc, k0, L, a.row_stride);
     for (int i = threadIdx.x; i < BK; i += THREADS)
       bias[i] = key_bias(pad_b, k0 + i, L);
     __syncthreads();
@@ -458,18 +501,19 @@ packed_attention_fwd_fp32(const float* __restrict__ qkv,
       float dot = 0.0f;
 #pragma unroll 8
       for (int d = 0; d < DH; ++d) dot += qrow[d] * krow[d];
-      srow[c] = masked_score(dot, scale, bias[c]);
+      srow[c] = masked_score(dot, a.scale2, bias[c]);
       tile_max = fmaxf(tile_max, srow[c]);
     }
     tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
     const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
+    const float alpha = exp2f(m - m_new);
     m = m_new;
     float sum = 0.0f;
     for (int c = half; c < BK; c += 2) {
-      float p = expf(srow[c] - m);
+      float p = exp2f(srow[c] - m);
       sum += p;
-      if (dropout && hash_bits(key_base + (uint32_t)(k0 + c), seed) < threshold)
+      if (a.dropout &&
+          hash_bits(key_base + (uint32_t)(k0 + c), a.seed) < a.threshold)
         p = 0.0f;
       srow[c] = p;
     }
@@ -485,47 +529,86 @@ packed_attention_fwd_fp32(const float* __restrict__ qkv,
   }
 
   if (q0 + r < L) {
-    const float inv = keep_scale / l;
-    float* dst = out + ((size_t)b * L + q0 + r) * D + h * DH;
+    if (a.stats && half == 0)
+      a.stats[(size_t)bh * L + q0 + r] = make_float2(m, l);
+    const float inv = a.keep_scale / l;
+    float* dst = a.out + ((size_t)b * L + q0 + r) * D + h * DH;
     for (int c = half; c < DH; c += 2) dst[c] = os[r * DH + c] * inv;
   }
 }
 
-template <typename T, int DH, typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem_bytes, const void* qkv,
-                   const void* pad, void* out, int batch, int L, int H, int hb,
-                   float scale, uint32_t seed, uint32_t threshold,
-                   float keep_scale, int dropout, cudaStream_t stream) {
+template <typename T, typename Kernel>
+cudaError_t launch(Kernel kernel, size_t smem_bytes, const Args<T>& a,
+                   int batch, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + BQ - 1) / BQ, H, batch);
-  kernel<<<grid, THREADS, smem_bytes, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const uint8_t*>(pad),
-      static_cast<T*>(out), L, H, hb, scale, seed, threshold, keep_scale,
-      dropout);
+  const dim3 grid((a.L + BQ - 1) / BQ, a.H, batch);
+  kernel<<<grid, THREADS, smem_bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+Args<T> make_args(const void* q, const void* k, const void* v,
+                  const void* pad, void* out, void* stats, int L, int H,
+                  int hb, int row_stride, int group_stride, int lk_pad,
+                  float scale, unsigned int seed, unsigned int threshold,
+                  float keep_scale, int dropout) {
+  Args<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.pad = static_cast<const uint8_t*>(pad);
+  a.out = static_cast<T*>(out);
+  a.stats = static_cast<float2*>(stats);
+  a.L = L;
+  a.H = H;
+  a.hb = hb;
+  a.row_stride = row_stride;
+  a.group_stride = group_stride;
+  a.lk_pad = lk_pad;
+  a.scale2 = scale * LOG2E;
+  a.seed = seed;
+  a.threshold = threshold;
+  a.keep_scale = keep_scale;
+  a.dropout = dropout;
+  return a;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  pad may be null (no key is padded).
-extern "C" int mmoe_flash_attention_packed(
-    const void* qkv, const void* pad, void* out, int dtype, int batch, int L,
-    int n_heads, int hb, int head_dim, float scale, unsigned int seed,
-    unsigned int threshold, float keep_scale, int dropout, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16.  pad and stats may be null.
+// Element strides and offsets: row_stride between rows of q/k/v, head h at
+// column (h / hb) * group_stride + (h % hb) * head_dim; lk_pad is the
+// dropout counter's key stride.
+extern "C" int mmoe_flash_attention_fwd(
+    const void* q, const void* k, const void* v, const void* pad, void* out,
+    void* stats, int dtype, int batch, int L, int n_heads, int hb,
+    int head_dim, int row_stride, int group_stride, int lk_pad, float scale,
+    unsigned int seed, unsigned int threshold, float keep_scale, int dropout,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MMOE_LAUNCH(T, DH, KERNEL, LAYOUT)                                  \
-  launch<T, DH>(KERNEL<DH>, LAYOUT<DH>::bytes, qkv, pad, out, batch, L,     \
-                n_heads, hb, scale, seed, threshold, keep_scale, dropout, s)
+#define MMOE_LAUNCH(T, DH, KERNEL, LAYOUT)                                   \
+  launch<T>(KERNEL, LAYOUT<DH>::bytes,                                       \
+            make_args<T>(q, k, v, pad, out, stats, L, n_heads, hb,           \
+                         row_stride, group_stride, lk_pad, scale, seed,      \
+                         threshold, keep_scale, dropout),                    \
+            batch, s)
+  const bool split = group_stride == 0 && hb == n_heads;
   if (dtype == 1 && head_dim == 64)
-    return MMOE_LAUNCH(bf16, 64, packed_attention_fwd_bf16, MmaLayout);
+    return split ? MMOE_LAUNCH(bf16, 64, (attention_fwd_bf16<64, true>),
+                               MmaLayout)
+                 : MMOE_LAUNCH(bf16, 64, (attention_fwd_bf16<64, false>),
+                               MmaLayout);
   if (dtype == 1 && head_dim == 128)
-    return MMOE_LAUNCH(bf16, 128, packed_attention_fwd_bf16, MmaLayout);
+    return split ? MMOE_LAUNCH(bf16, 128, (attention_fwd_bf16<128, true>),
+                               MmaLayout)
+                 : MMOE_LAUNCH(bf16, 128, (attention_fwd_bf16<128, false>),
+                               MmaLayout);
   if (dtype == 0 && head_dim == 64)
-    return MMOE_LAUNCH(float, 64, packed_attention_fwd_fp32, Fp32Layout);
+    return MMOE_LAUNCH(float, 64, attention_fwd_fp32<64>, Fp32Layout);
   if (dtype == 0 && head_dim == 128)
-    return MMOE_LAUNCH(float, 128, packed_attention_fwd_fp32, Fp32Layout);
+    return MMOE_LAUNCH(float, 128, attention_fwd_fp32<128>, Fp32Layout);
 #undef MMOE_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -7,11 +7,13 @@ with has_image = 0 enter the ViT as exact zeros.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from ..config import ImageEncoderConfig
-from .layers import LayerNorm
+from .layers import LayerNorm, dropout
 from .vit import ViTEncoder
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -30,16 +32,21 @@ def normalize_patches(patches_u8: torch.Tensor,
 
 
 class ItemImageExpert(nn.Module):
-    """ViT -> mean/cls pool -> LN (ref model.py:343-385)."""
+    """ViT -> mean/cls pool -> LN -> dropout (ref model.py:343-385)."""
 
     def __init__(self, cfg: ImageEncoderConfig,
-                 dtype: torch.dtype = torch.float32, use_flash: bool = False):
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
+                 dropout: float = 0.1, remat: bool = False):
         super().__init__()
-        self.backbone = ViTEncoder(cfg, dtype, use_flash)
+        self.backbone = ViTEncoder(cfg, dtype, use_flash, remat)
         self.norm = LayerNorm(cfg.hidden_size, dtype=dtype)
         self.pool_type = cfg.pool_type
+        self.dtype = dtype
+        self.dropout = dropout
 
-    def forward(self, patches: torch.Tensor) -> torch.Tensor:
-        tokens = self.backbone(patches)
+    def forward(self, patches: torch.Tensor, *, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        tokens = self.backbone(patches, deterministic=deterministic, rng=rng)
         vec = tokens.mean(1) if self.pool_type == "mean" else tokens[:, 0]
-        return self.norm(vec)
+        return dropout(self.norm(vec).to(self.dtype), self.dropout,
+                       deterministic, rng)

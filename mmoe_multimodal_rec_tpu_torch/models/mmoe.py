@@ -1,14 +1,18 @@
-"""Full-model assembly, baseline variant, inference only.
+"""Full-model assembly, baseline variant.
 
 Port of mmoe_multimodal_rec_tpu/models/mmoe.py: two text experts, the image
 expert, the sentence cross expert and two fuse experts stacked in the
 reference order u_doc, i_doc, img_vec, ui_vec, xui, xti (train.py:242-251)
 into the dense-gated two-task head.  The HoME variant, the shared-base text
 layout and top-k gating are later slices and raise here.
+
+`forward(batch, deterministic=False, rng=gen)` is the training forward:
+every dropout site draws its seed from `gen` in call order (user expert,
+item expert, image expert, cross expert, the two fuse experts, the head).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -53,33 +57,40 @@ class MMoERecModel(nn.Module):
         self.cfg = cfg
         dtype = DTYPES[cfg.compute_dtype]
         flash = cfg.use_flash_attention
-        self.user_expert = TextExpert(cfg.text, dtype, flash)
-        self.item_expert = TextExpert(cfg.text, dtype, flash)
-        self.img_expert = ItemImageExpert(cfg.image, dtype, flash)
+        drop = cfg.dropout
+        self.user_expert = TextExpert(cfg.text, dtype, flash, drop, cfg.remat)
+        self.item_expert = TextExpert(cfg.text, dtype, flash, drop, cfg.remat)
+        self.img_expert = ItemImageExpert(cfg.image, dtype, flash, drop,
+                                          cfg.remat)
         self.cross_ui = RobustTextCrossExpert(d, cfg.cross_layers,
-                                              cfg.cross_heads, dtype, flash)
+                                              cfg.cross_heads, dtype, flash,
+                                              drop)
         self.concat_ui = EnhancedCrossFuse(d, cfg.fuse_depth, cfg.fuse_heads,
-                                           dtype)
+                                           dtype, drop)
         self.concat_ti = EnhancedCrossFuse(d, cfg.fuse_depth, cfg.fuse_heads,
-                                           dtype)
-        self.head = TwoTaskMMoE(d, cfg.n_experts, cfg.tower_hidden, dtype)
+                                           dtype, drop)
+        self.head = TwoTaskMMoE(d, cfg.n_experts, cfg.tower_hidden, dtype,
+                                cfg.tower_dropout)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> ModelOutputs:
+    def forward(self, batch: Dict[str, torch.Tensor], *,
+                deterministic: bool = True,
+                rng: Optional[torch.Generator] = None) -> ModelOutputs:
+        kw = dict(deterministic=deterministic, rng=rng)
         u_sent, u_mask, u_doc = self.user_expert(
             batch["user_tokens"], batch["user_sent_chunk"],
-            batch["user_sent_tok"])
+            batch["user_sent_tok"], **kw)
         i_sent, i_mask, i_doc = self.item_expert(
             batch["item_tokens"], batch["item_sent_chunk"],
-            batch["item_sent_tok"])
+            batch["item_sent_tok"], **kw)
         img_vec = self.img_expert(normalize_patches(batch["patches"],
-                                                    batch["has_image"]))
-        ui_vec = self.cross_ui(u_sent, u_mask, i_sent, i_mask)
-        xui = self.concat_ui(u_doc, img_vec)
-        xti = self.concat_ti(i_doc, img_vec)
+                                                    batch["has_image"]), **kw)
+        ui_vec = self.cross_ui(u_sent, u_mask, i_sent, i_mask, **kw)
+        xui = self.concat_ui(u_doc, img_vec, **kw)
+        xti = self.concat_ti(i_doc, img_vec, **kw)
         aux = {"u_doc": u_doc, "i_doc": i_doc, "img_vec": img_vec,
                "ui_vec": ui_vec, "xui": xui, "xti": xti}
         expert_vecs = torch.stack([u_doc, i_doc, img_vec, ui_vec, xui, xti],
                                   dim=1)
-        logit_good, logit_best, balance = self.head(expert_vecs)
+        logit_good, logit_best, balance = self.head(expert_vecs, **kw)
         aux["gate_balance"] = balance
         return ModelOutputs(logit_good.float(), logit_best.float(), aux)

@@ -7,14 +7,14 @@ tensors `sent_chunk`/`sent_tok` [B, S] (global chunk row / token position,
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import TextEncoderConfig
 from .bert import BertEncoder
-from .layers import LayerNorm
+from .layers import LayerNorm, dropout
 
 
 def gather_sentences(h: torch.Tensor, sent_chunk: torch.Tensor,
@@ -39,20 +39,27 @@ def gather_sentences(h: torch.Tensor, sent_chunk: torch.Tensor,
 
 
 class TextExpert(nn.Module):
-    """Baseline text expert: encoder -> gather -> LN on the sentence and
-    doc vectors (the same norm for both, ref model.py:335-336)."""
+    """Baseline text expert: encoder -> gather -> LN + dropout on the
+    sentence and doc vectors (the same norm for both, two dropout draws,
+    ref model.py:335-336)."""
 
     def __init__(self, cfg: TextEncoderConfig,
-                 dtype: torch.dtype = torch.float32, use_flash: bool = False):
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
+                 dropout: float = 0.1, remat: bool = False):
         super().__init__()
-        self.encoder = BertEncoder(cfg, dtype, use_flash)
+        self.encoder = BertEncoder(cfg, dtype, use_flash, remat)
         self.norm = LayerNorm(cfg.hidden_size, dtype=dtype)
         self.dtype = dtype
+        self.dropout = dropout
 
-    def forward(self, tokens, sent_chunk, sent_tok):
-        h = self.encoder(tokens)
+    def forward(self, tokens, sent_chunk, sent_tok, *,
+                deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
+        h = self.encoder(tokens, deterministic=deterministic, rng=rng)
         sent_vecs, sent_mask, doc_vecs = gather_sentences(h, sent_chunk,
                                                           sent_tok)
-        sent_vecs = self.norm(sent_vecs)
-        doc_vecs = self.norm(doc_vecs.to(self.dtype))
+        sent_vecs = dropout(self.norm(sent_vecs).to(self.dtype), self.dropout,
+                            deterministic, rng)
+        doc_vecs = dropout(self.norm(doc_vecs.to(self.dtype)).to(self.dtype),
+                           self.dropout, deterministic, rng)
         return sent_vecs, sent_mask, doc_vecs

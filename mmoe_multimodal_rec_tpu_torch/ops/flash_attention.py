@@ -1,23 +1,29 @@
-"""Packed-qkv self-attention: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Self-attention kernels' wrappers and their plain PyTorch versions.
 
-Port of mmoe_multimodal_rec_tpu/ops/flash_attention.py `flash_attention_packed`
-(forward).  The input is the projection output qkv [B, L, 3D] in the
-GROUP-INTERLEAVED column order `pack_qkv_weights` builds — for each head
-group g of hb heads, [q_g | k_g | v_g] with w = hb*dh columns each — and the
-output is [B, L, D] in head-major order, ready for the out projection.
+Port of mmoe_multimodal_rec_tpu/ops/flash_attention.py:
+- `flash_attention_packed` (forward only): the input is the projection
+  output qkv [B, L, 3D] in the GROUP-INTERLEAVED column order
+  `pack_qkv_weights` builds — for each head group g of hb heads,
+  [q_g | k_g | v_g] with w = hb*dh columns each;
+- `flash_attention` (forward and backward, a torch.autograd.Function): q, k,
+  v [B, L, D] each, as the separate q/k/v projections produce them; the
+  training path's text self-attention, with in-kernel dropout.
+Outputs are [B, L, D] in head-major order, ready for the out projection.
 `pad_mask` [B, L] is 1/True at padded keys (torch key_padding_mask).
 
-`flash_attention_packed` dispatches on the tensor's device, never on what
-the machine has: a CPU tensor takes `flash_attention_packed_reference`, a
-CUDA tensor launches the hand-written Hopper kernel
-(csrc/flash_attention_packed.cu, built by ops/cuda_lib.py at first use) or
-raises.  `flash_attention_packed.launches` counts kernel launches.
+Every wrapper dispatches on the tensor's device, never on what the machine
+has: a CPU tensor takes the plain PyTorch version
+(`flash_attention_packed_reference`, `flash_attention_reference`,
+`flash_attention_bwd_reference`), a CUDA tensor launches the hand-written
+Hopper kernel (csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu,
+built by ops/cuda_lib.py at first use) or raises.  `<wrapper>.launches`
+counts the wrapper's kernel launches (`flash_attention_bwd`: one per call,
+which runs its dq and dk/dv kernels).
 
-Dropout (rate > 0, L a multiple of 128) uses the JAX interpret-mode keep
-mask: a murmur3-finalizer hash over the counter ((b*H + h)*Lq + q)*Lk_pad + k,
-keep = bits >= uint32(rate * (2^32 - 1)); `dropout_keep_mask` builds it, so
-given the same seed the masks equal JAX's bit for bit.
+Dropout uses the JAX interpret-mode keep mask: a murmur3-finalizer hash
+over the counter ((b*H + h)*Lq + q)*Lk_pad + k (Lk_pad = Lk rounded up to
+128), keep = bits >= uint32(rate * (2^32 - 1)); `dropout_keep_mask` builds
+it, so given the same seed the masks equal JAX's bit for bit.
 """
 from __future__ import annotations
 
@@ -130,19 +136,175 @@ def flash_attention_packed_reference(qkv: torch.Tensor,
     return out.reshape(b, l, d).to(qkv.dtype)
 
 
+def _check_split(q, k, v, n_heads: int):
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError("q, k, v must be [B, L, D] of one shape (self-"
+                         f"attention), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[-1] % n_heads:
+        raise ValueError(f"D={q.shape[-1]} is not a multiple of "
+                         f"n_heads={n_heads}")
+
+
+def _lk_padded(lk: int) -> int:
+    return -(-lk // _LANE) * _LANE
+
+
+def _probs(q, k, pad_mask, n_heads: int) -> torch.Tensor:
+    """fp32 softmax [B, H, L, L] of the split layout, padded keys at -1e9."""
+    b, l, d = q.shape
+    dh = d // n_heads
+    qh = q.float().reshape(b, l, n_heads, dh)
+    kh = k.float().reshape(b, l, n_heads, dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(dh)
+    if pad_mask is not None:
+        scores = scores.masked_fill(pad_mask.bool()[:, None, None, :], NEG_INF)
+    return torch.softmax(scores, dim=-1)
+
+
+def flash_attention_reference(q, k, v, pad_mask=None,
+                              seed: Optional[int] = None, n_heads: int = 12,
+                              dropout_rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of `flash_attention`'s forward: fp32 softmax
+    with padded keys at -1e9, the hash keep mask, output in q's dtype."""
+    _check_split(q, k, v, n_heads)
+    b, l, d = q.shape
+    p = _probs(q, k, pad_mask, n_heads)
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(seed or 0, b, n_heads, l, l, dropout_rate,
+                                 device=q.device)
+        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+    vh = v.float().reshape(b, l, n_heads, d // n_heads)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, l, d).to(q.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, pad_mask, seed: Optional[int],
+                                  dout, n_heads: int = 12,
+                                  dropout_rate: float = 0.0):
+    """Plain PyTorch version of `flash_attention`'s backward, written out as
+    the JAX kernel's `_head_bwd`: p the pre-dropout softmax,
+    dv = (p*keep)^T dO / (1-r) with p*keep cast to the input dtype,
+    dp = keep * (dO v^T), ds = p * (dp - rowsum(dp*p)) * scale / (1-r) cast
+    to the input dtype, dq = ds k, dk = ds^T q; fp32 sums; (dq, dk, dv) in
+    the input dtype."""
+    _check_split(q, k, v, n_heads)
+    b, l, d = q.shape
+    dh = d // n_heads
+    dt = q.dtype
+    qh, kh, vh, gh = (x.float().reshape(b, l, n_heads, dh)
+                      for x in (q, k, v, dout))
+    p = _probs(q, k, pad_mask, n_heads)
+    inv = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0.0 else 1.0
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, vh)
+    p_drop = p
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(seed or 0, b, n_heads, l, l, dropout_rate,
+                                 device=q.device)
+        p_drop = torch.where(keep, p, 0.0)
+        dp = torch.where(keep, dp, 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop.to(dt).float(), gh) * inv
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = (ds * (inv / math.sqrt(dh))).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh)
+    return tuple(x.reshape(b, l, d).to(dt) for x in (dq, dk, dv))
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _kernel():
-    lib = cuda_lib.load("flash_attention_packed")
-    fn = lib.mmoe_flash_attention_packed
+def _bind(lib_name: str, fn_name: str, argtypes):
+    fn = getattr(cuda_lib.load(lib_name), fn_name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, ctypes.c_float,
-                       ctypes.c_uint, ctypes.c_uint, ctypes.c_float, i, p]
-        fn.restype = i
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return fn
 
+
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+_FWD_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _U, _U, _F, _I, _P]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _U, _U, _F, _I, _P]
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """What every kernel refuses: another device kind, dtypes other than
+    bf16/fp32 or mixed, non-contiguous or misaligned tensors."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes bfloat16 or float32, got {dtype}")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: inputs must share device and dtype, "
+                             f"got {t.device}/{t.dtype} and {dev}/{dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
+                             "aligned")
+
+
+def _check_head_dim(dh: int) -> None:
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel is built for head dim {KERNEL_HEAD_DIMS}, "
+                         f"got {dh}")
+
+
+def _pad_arg(pad_mask: Optional[torch.Tensor], b: int, l: int,
+             device) -> Optional[torch.Tensor]:
+    """The pad mask as the kernels read it: contiguous uint8 [B, L]."""
+    if pad_mask is None:
+        return None
+    if pad_mask.device != device:
+        raise ValueError(f"pad_mask on {pad_mask.device}, inputs on {device}")
+    if tuple(pad_mask.shape) != (b, l) or not pad_mask.is_contiguous():
+        raise ValueError(f"pad_mask must be a contiguous [{b}, {l}], got "
+                         f"{tuple(pad_mask.shape)}")
+    if pad_mask.dtype == torch.bool:
+        return pad_mask.view(torch.uint8)
+    if pad_mask.dtype not in (torch.int8, torch.uint8):
+        raise TypeError(f"pad_mask must be bool/int8/uint8, got "
+                        f"{pad_mask.dtype}")
+    return pad_mask
+
+
+def _dropout_args(seed: Optional[int], rate: float):
+    """(seed, threshold, keep_scale, dropout) as the kernels take them."""
+    if rate <= 0.0:
+        return 0, 0, 1.0, 0
+    return (seed or 0) & _M32, _threshold(rate), 1.0 / (1.0 - rate), 1
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_fwd(q, k_ptr: int, v_ptr: int, pad, out, stats, n_heads: int,
+                hb: int, row_stride: int, group_stride: int, lk_pad: int,
+                seed, rate: float) -> None:
+    b, l = q.shape[:2]
+    dh = out.shape[-1] // n_heads
+    fn = _bind("flash_attention_fwd", "mmoe_flash_attention_fwd",
+               _FWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_ptr, v_ptr,
+                 None if pad is None else pad.data_ptr(), out.data_ptr(),
+                 None if stats is None else stats.data_ptr(),
+                 _DTYPE_CODES[q.dtype], b, l, n_heads, hb, dh, row_stride,
+                 group_stride, lk_pad, 1.0 / math.sqrt(dh),
+                 *_dropout_args(seed, rate), _stream(q.device))
+    if err:
+        raise RuntimeError(f"flash attention forward launch failed: CUDA "
+                           f"error {err}")
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
 
 def flash_attention_packed(qkv: torch.Tensor,
                            pad_mask: Optional[torch.Tensor] = None,
@@ -154,53 +316,133 @@ def flash_attention_packed(qkv: torch.Tensor,
     CPU tensor: the plain PyTorch version.  CUDA tensor: the Hopper kernel,
     or an exception for what it does not take (dtype other than bf16/fp32,
     a non-contiguous or misaligned tensor, a mask on another device, head
-    dim other than 64/128)."""
+    dim other than 64/128, a qkv that needs a gradient: the packed backward
+    is not ported)."""
     _check(qkv, n_heads, hb, dropout_rate)
     if qkv.device.type == "cpu":
         return flash_attention_packed_reference(qkv, pad_mask, seed, n_heads,
                                                 hb, dropout_rate)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no kernel for device {qkv.device}")
-    if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernel takes bfloat16 or float32, got {qkv.dtype}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("qkv must be contiguous and 16-byte aligned")
+    _check_cuda("flash_attention_packed", qkv)
+    if qkv.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError("flash_attention_packed has no backward "
+                                  "kernel yet")
     b, l, d3 = qkv.shape
     d = d3 // 3
     dh = d // n_heads
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel is built for head dim {KERNEL_HEAD_DIMS}, "
-                         f"got {dh}")
-    mask_ptr = None
-    if pad_mask is not None:
-        if pad_mask.device != qkv.device:
-            raise ValueError(f"pad_mask on {pad_mask.device}, qkv on "
-                             f"{qkv.device}")
-        if tuple(pad_mask.shape) != (b, l) or not pad_mask.is_contiguous():
-            raise ValueError(f"pad_mask must be a contiguous [{b}, {l}], got "
-                             f"{tuple(pad_mask.shape)}")
-        if pad_mask.dtype == torch.bool:
-            pad_mask = pad_mask.view(torch.uint8)
-        elif pad_mask.dtype not in (torch.int8, torch.uint8):
-            raise TypeError(f"pad_mask must be bool/int8/uint8, got "
-                            f"{pad_mask.dtype}")
-        mask_ptr = pad_mask.data_ptr()
-    rate = float(dropout_rate)
+    _check_head_dim(dh)
+    pad = _pad_arg(pad_mask, b, l, qkv.device)
+    w = hb * dh * qkv.element_size()
     out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
-    fn = _kernel()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = fn(qkv.data_ptr(), mask_ptr, out.data_ptr(),
-                 _DTYPE_CODES[qkv.dtype], b, l, n_heads, hb, dh,
-                 1.0 / math.sqrt(dh), (seed or 0) & _M32,
-                 _threshold(rate) if rate > 0.0 else 0,
-                 1.0 / (1.0 - rate) if rate > 0.0 else 1.0,
-                 int(rate > 0.0), stream)
-    if err:
-        raise RuntimeError(f"flash_attention_packed launch failed: CUDA "
-                           f"error {err}")
+    # the packed counter strides over L itself (dropout needs L % 128 == 0)
+    _launch_fwd(qkv, qkv.data_ptr() + w, qkv.data_ptr() + 2 * w, pad, out,
+                None, n_heads, hb, d3, 3 * hb * dh, l, seed,
+                float(dropout_rate))
     flash_attention_packed.launches += 1
     return out
 
 
 flash_attention_packed.launches = 0
+
+
+def _flash_fwd_cuda(q, k, v, pad_mask, seed, n_heads: int, rate: float,
+                    want_stats: bool):
+    _check_cuda("flash_attention", q, k, v)
+    b, l, d = q.shape
+    _check_head_dim(d // n_heads)
+    pad = _pad_arg(pad_mask, b, l, q.device)
+    out = torch.empty_like(q)
+    stats = (torch.empty((b, n_heads, l, 2), dtype=torch.float32,
+                         device=q.device) if want_stats else None)
+    _launch_fwd(q, k.data_ptr(), v.data_ptr(), pad, out, stats, n_heads,
+                n_heads, d, 0, _lk_padded(l), seed, rate)
+    flash_attention.launches += 1
+    return out, stats
+
+
+def flash_attention_bwd(q, k, v, pad_mask, seed: Optional[int], dout,
+                        n_heads: int = 12, dropout_rate: float = 0.0,
+                        stats: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of `flash_attention` for the cotangent dout [B, L, D].
+
+    CPU tensors: `flash_attention_bwd_reference`.  CUDA tensors: the Hopper
+    kernel, which also needs the forward kernel's softmax statistics
+    `stats` [B, H, L, 2] (m, l)."""
+    _check_split(q, k, v, n_heads)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, pad_mask, seed, dout,
+                                             n_heads, dropout_rate)
+    if stats is None:
+        raise ValueError("the CUDA backward needs the forward kernel's "
+                         "stats")
+    _check_cuda("flash_attention_bwd", q, k, v, dout)
+    b, l, d = q.shape
+    _check_head_dim(d // n_heads)
+    if (stats.dtype != torch.float32 or not stats.is_contiguous()
+            or tuple(stats.shape) != (b, n_heads, l, 2)):
+        raise ValueError(f"stats must be a contiguous fp32 [{b}, {n_heads}, "
+                         f"{l}, 2]")
+    pad = _pad_arg(pad_mask, b, l, q.device)
+    delta = torch.empty((b, n_heads, l), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dh = d // n_heads
+    fn = _bind("flash_attention_bwd", "mmoe_flash_attention_bwd",
+               _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if pad is None else pad.data_ptr(),
+                 dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 _DTYPE_CODES[q.dtype], b, l, n_heads, dh, _lk_padded(l),
+                 1.0 / math.sqrt(dh), *_dropout_args(seed, dropout_rate),
+                 _stream(q.device))
+    if err:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, pad_mask, seed, n_heads, dropout_rate):
+        stats = None
+        if q.device.type == "cpu":
+            out = flash_attention_reference(q, k, v, pad_mask, seed, n_heads,
+                                            dropout_rate)
+        else:
+            out, stats = _flash_fwd_cuda(q, k, v, pad_mask, seed, n_heads,
+                                         dropout_rate,
+                                         any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, pad_mask, stats)
+        ctx.seed, ctx.n_heads, ctx.rate = seed, n_heads, dropout_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, pad_mask, stats = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, pad_mask, ctx.seed,
+                                         dout.contiguous(), ctx.n_heads,
+                                         ctx.rate, stats)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pad_mask: Optional[torch.Tensor] = None,
+                    seed: Optional[int] = None, n_heads: int = 12,
+                    dropout_rate: float = 0.0) -> torch.Tensor:
+    """Self-attention over split q, k, v [B, L, D] -> [B, L, D], with
+    attention-weight dropout keyed on `seed` (ignored at rate 0), and its
+    backward.  CPU tensors: the plain versions.  CUDA tensors: the Hopper
+    kernels, or an exception for what they do not take (see
+    `flash_attention_packed`)."""
+    _check_split(q, k, v, n_heads)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {q.device}")
+    return _FlashAttention.apply(q, k, v, pad_mask, seed, n_heads,
+                                 float(dropout_rate))
+
+
+flash_attention.launches = 0

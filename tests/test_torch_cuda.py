@@ -90,3 +90,187 @@ def test_packed_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="pad_mask on"):
         tfa.flash_attention_packed(qkv, torch.zeros(2, 128, dtype=torch.bool),
                                    None, 12, 6)
+
+
+SPLIT_CASES = [(dt, l, 64, masked, rate)
+               for dt in ("bfloat16", "float32") for l in (128, 384)
+               for masked in (True, False) for rate in (0.0, 0.1)]
+SPLIT_CASES += [("bfloat16", 256, 128, True, 0.1),
+                ("float32", 256, 128, True, 0.1)]
+# bf16: output against the fp32 plain version within 2e-2 (bf16 rounding
+# of p and of the output); gradients against the plain backward run on the
+# same bf16 inputs within 3e-2 of the largest reference gradient.  Both
+# take delta as the fp32 rowsum(dp*p) and cast ds and p*keep to bf16 before
+# the products, from fp32 values that differ in their last bits (exp2f,
+# summation order), so a value near a bf16 rounding boundary may round the
+# other way.  On an H100 the gap is 0.0016-0.0017 of the largest gradient
+# at the main path's shape (PERF.md).  fp32: 1e-4 and 1e-4 relative
+# (summation order, exp2f).
+SPLIT_TOL = {"bfloat16": (2e-2, 3e-2), "float32": (1e-4, 1e-4)}
+
+
+def _split_inputs(dtype, b, l, dh, masked, gen):
+    heads = 768 // dh
+    q, k, v, g = (torch.randn(b, l, heads * dh, generator=gen, device="cuda")
+                  .to(getattr(torch, dtype)) for _ in range(4))
+    pad = None
+    if masked:
+        lens = torch.tensor([l, l // 2, 1, 0], device="cuda")
+        pad = torch.arange(l, device="cuda")[None, :] >= lens[:, None]
+    return heads, q, k, v, g, pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,l,dh,masked,rate", SPLIT_CASES)
+def test_split_kernels_match_plain_versions(dtype, l, dh, masked, rate):
+    """flash_attention's forward and backward kernels against
+    flash_attention_reference / flash_attention_bwd_reference on the same
+    inputs; rows of real length L, L/2, 1 and 0 (all pad) when masked."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    heads, q, k, v, g, pad = _split_inputs(dtype, 4, l, dh, masked, gen)
+    seed = 4321 if rate else None
+    fwd_tol, grad_tol = SPLIT_TOL[dtype]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches)
+    out = tfa.flash_attention(*leaves, pad, seed, heads, rate)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref = tfa.flash_attention_reference(q.float(), k.float(), v.float(), pad,
+                                        seed, heads, rate)
+    assert out.dtype == q.dtype
+    assert (out.float() - ref).abs().max().item() <= fwd_tol
+    want = tfa.flash_attention_bwd_reference(q, k, v, pad, seed, g, heads,
+                                             rate)
+    for leaf, w, name in zip(leaves, want, "qkv"):
+        assert leaf.grad.dtype == q.dtype
+        err = (leaf.grad.float() - w.float()).abs().max().item()
+        top = w.float().abs().max().item()
+        assert err <= grad_tol * top, (name, err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split_kernels_dropout_mask_is_the_jax_stream(dtype):
+    """With q = k = 0 every key weighs 1/L.  Forward: v[key j] = e_j reads
+    the keep mask out as out[b, q, h*dh + j] = keep[b, h, q, j] / (L (1-r)).
+    Backward: dO[q] = e_q reads it out of dv as
+    dv[b, key, h*dh + q] = keep[b, h, q, key] / (L (1-r)).  Both must equal
+    dropout_keep_mask (bit-identical to JAX's interpret-mode stream)."""
+    _need_card()
+    b, l, dh, heads, rate, seed = 2, 128, 128, 6, 0.3, 2024
+    dt = getattr(torch, dtype)
+    z = torch.zeros(b, l, heads * dh, device="cuda", dtype=dt)
+    eye = torch.eye(l, dh, device="cuda").repeat(b, 1, heads).to(dt)
+    want = tfa.dropout_keep_mask(seed, b, heads, l, l, rate, device="cuda")
+    vv = eye.clone().requires_grad_()
+    out = tfa.flash_attention(z, z, vv, None, seed, heads, rate)
+    got = out.float().reshape(b, l, heads, dh).permute(0, 2, 1, 3)
+    assert torch.equal(got * (l * (1.0 - rate)) > 0.5, want)
+    out.backward(eye)
+    dv = vv.grad.float().reshape(b, l, heads, dh).permute(0, 2, 3, 1)
+    assert torch.equal(dv * (l * (1.0 - rate)) > 0.5, want)
+
+
+@pytest.mark.cuda
+def test_split_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    q = torch.zeros(2, 128, 768, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfa.flash_attention(q.half(), q.half(), q.half(), None, None, 12)
+    with pytest.raises(ValueError, match="share device and dtype"):
+        tfa.flash_attention(q, q.float(), q, None, None, 12)
+    t = q.transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(t, t, t, None, None, 12)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, q, q, None, None, 24)
+    with pytest.raises(ValueError, match="pad_mask on"):
+        tfa.flash_attention(q, q, q, torch.zeros(2, 128, dtype=torch.bool),
+                            None, 12)
+    with pytest.raises(ValueError, match="needs the forward kernel"):
+        tfa.flash_attention_bwd(q, q, q, None, None, q, 12)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tfa.flash_attention_packed(
+            torch.zeros(2, 128, 3 * 768, device="cuda", requires_grad=True),
+            None, None, 12, 6)
+
+
+@pytest.mark.cuda
+def test_hash_dropout_mask_on_the_card_equals_the_cpu():
+    """The int32 hash wraps on the card as on the CPU (where
+    tests/test_torch_train.py holds it to JAX bit for bit)."""
+    _need_card()
+    from mmoe_multimodal_rec_tpu_torch.models import layers
+    for shape, rate, seed in (((64, 384, 768), 0.1, 987654321),
+                              ((3, 7), 0.5, 0)):
+        gpu = layers.hash_keep_mask(shape, seed, rate, "cuda").cpu()
+        assert torch.equal(gpu, layers.hash_keep_mask(shape, seed, rate,
+                                                      "cpu"))
+
+
+@pytest.mark.cuda
+def test_fused_lora_dropout_refuses_on_the_card():
+    """lora_fused_dropout=true has no kernel yet: a training forward on the
+    card raises; the serving forward (no dropout) does not."""
+    _need_card()
+    from mmoe_multimodal_rec_tpu_torch.models import layers
+    lora = layers.LoRADense(32, 32, 2, 32.0, dropout=0.1,
+                            fused_dropout=True)
+    layers.init_weights(lora, torch.Generator().manual_seed(0))
+    lora.cuda()
+    x = torch.randn(4, 32, device="cuda")
+    lora(x)
+    with pytest.raises(NotImplementedError, match="lora_fused_dropout=false"):
+        lora(x, deterministic=False, rng=torch.Generator().manual_seed(1))
+
+
+@pytest.mark.cuda
+def test_small_fp32_training_step_card_equals_cpu():
+    """One training step (accum 2, dropout 0.1 everywhere it is on in the
+    baseline, LoRA at full lr, AdamW eps 1) of a small fp32 model whose text attention
+    takes flash_attention on the card and its plain versions on the CPU:
+    the same loss and grad_norm within 1e-4 relative, the same parameters
+    within 1e-5."""
+    _need_card()
+    import numpy as np
+    from mmoe_multimodal_rec_tpu_torch.config import tiny_config
+    from mmoe_multimodal_rec_tpu_torch.train.loop import Trainer, dummy_batch
+    cfg = tiny_config(batch_size=2)
+    m = cfg.model
+    m.use_flash_attention = True
+    m.text.hidden_size = m.image.hidden_size = 128
+    m.text.num_heads = m.image.num_heads = 2
+    m.text.intermediate_size = m.image.intermediate_size = 256
+    m.text.max_position_embeddings = 128
+    m.packer.max_tok = 128
+    m.text.lora_fused_dropout = False
+    o = cfg.train.optim
+    # LoRA at full lr from the first update; eps 1 makes that update
+    # 0.1 * g / (|g| + 1), nearly linear in g (tests/test_torch_train.py)
+    o.freeze_steps, o.unfreeze_steps, o.lr, o.eps = -1, 1, 0.1, 1.0
+    rng = np.random.default_rng(0)
+    batch = dummy_batch(cfg, accum=2)
+    for side in ("user", "item"):
+        tok = rng.integers(5, 200, batch[f"{side}_tokens"].shape)
+        tok[..., 100:] = 0                  # padded tail keys
+        batch[f"{side}_tokens"] = tok.astype(np.int32)
+        batch[f"{side}_sent_chunk"][..., :3] = rng.integers(0, 4, (2, 2, 3))
+        batch[f"{side}_sent_tok"][..., :3] = rng.integers(0, 100, (2, 2, 3))
+    batch["label_good"] = (rng.random((2, 2)) < 0.5).astype(np.float32)
+    before = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+    got = Trainer(cfg, device="cuda")
+    mg = got.run_step(batch)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches - before[0] == 2 * 2 * 2
+    assert tfa.flash_attention_bwd.launches - before[1] == 2 * 2 * 2
+    want = Trainer(cfg, device="cpu")
+    mw = want.run_step(batch)
+    for key in ("loss", "grad_norm"):
+        assert abs(mg[key] - mw[key]) <= 1e-4 * abs(mw[key]), key
+    for k, p in want.trainable.items():
+        err = (got.trainable[k].detach().cpu() - p.detach()).abs().max()
+        assert err.item() <= 1e-5, k

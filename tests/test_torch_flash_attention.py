@@ -1,7 +1,9 @@
-"""The port's packed-qkv attention (mmoe_multimodal_rec_tpu_torch/ops) against
-the JAX package's Pallas kernel run in interpret mode, as
-tests/test_flash_attention.py runs it: the same numpy inputs go through
-both, fp32, atol 2e-5 (the JAX suite's own tolerance against einsum).  On
+"""The port's attention (mmoe_multimodal_rec_tpu_torch/ops), packed-qkv and
+split q/k/v, against the JAX package's Pallas kernels run in interpret mode,
+as tests/test_flash_attention.py runs them: the same numpy inputs and seeds
+go through both, fp32.  Packed forward within atol 2e-5 (the JAX suite's
+own tolerance against einsum); split forward within 1e-5 and its gradients
+within 1e-4 (fp32 sums in another order through two products).  On
 the CPU the port's wrapper takes its plain PyTorch version; the CUDA kernel
 itself is held against that plain version by tests/test_torch_cuda.py and
 chip_smoke.py on the card."""
@@ -151,12 +153,83 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_lib.shutil, "which", lambda name: None)
     monkeypatch.setattr(cuda_lib.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_lib.build("flash_attention_packed")
+        cuda_lib.build("flash_attention_fwd")
     assert not list((tmp_path / "build").glob("*.so"))
 
 
 def test_library_path_tracks_source():
-    a = cuda_lib.library_path("flash_attention_packed")
-    assert a.name.startswith("libflash_attention_packed-")
-    assert a.parent == cuda_lib.BUILD_DIR
-    assert a == cuda_lib.library_path("flash_attention_packed")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        a = cuda_lib.library_path(name)
+        assert a.name.startswith(f"lib{name}-")
+        assert a.parent == cuda_lib.BUILD_DIR
+        assert a == cuda_lib.library_path(name)
+
+
+SPLIT_FWD_ATOL = 1e-5
+SPLIT_GRAD_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("masked", [True, False])
+def test_split_forward_and_vjp_match_jax_interpret(rate, masked):
+    """flash_attention and its backward against JAX flash_attention(...,
+    interpret=True) and its custom vjp (the Pallas backward at rate 0.1,
+    the XLA recompute at rate 0), same seed, same cotangent."""
+    import jax
+    b, l, seed = 2, 128, 77
+    rng = np.random.default_rng(11)
+    q, k, v, g = (rng.normal(size=(b, l, D)).astype(np.float32)
+                  for _ in range(4))
+    mask = None
+    if masked:
+        mask = np.zeros((b, l), np.int8)
+        mask[0, -9:] = 1
+        mask[1, 40:50] = 1
+    jmask = None if mask is None else jnp.asarray(mask)
+    want, vjp = jax.vjp(
+        lambda q_, k_, v_: jfa.flash_attention(q_, k_, v_, jmask, seed, H,
+                                               rate, 512, True),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = tfa.flash_attention(tq, tk, tv, None if mask is None else
+                              torch.from_numpy(mask), seed, H, rate)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=SPLIT_FWD_ATOL)
+    got.backward(torch.from_numpy(g))
+    for t, w, name in zip((tq, tk, tv), want_grads, "qkv"):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   atol=SPLIT_GRAD_ATOL, err_msg=f"d{name}")
+
+
+def test_split_bwd_reference_is_the_gradient_of_the_forward():
+    """At rate 0.1 the written-out backward equals autograd through the
+    plain forward (the same keep mask enters both)."""
+    b, l, seed, rate = 1, 128, 5, 0.1
+    rng = np.random.default_rng(12)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, l, D)).astype(
+        np.float32)) for _ in range(4))
+    pad = torch.zeros(b, l, dtype=torch.bool)
+    pad[0, -3:] = True
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    tfa.flash_attention_reference(*leaves, pad, seed, H, rate).backward(g)
+    got = tfa.flash_attention_bwd_reference(q, k, v, pad, seed, g, H, rate)
+    for t, w in zip(got, leaves):
+        np.testing.assert_allclose(t.numpy(), w.grad.numpy(),
+                                   atol=SPLIT_GRAD_ATOL)
+
+
+def test_split_wrapper_rejects_and_does_not_count_on_cpu():
+    q = torch.zeros(1, 128, D)
+    with pytest.raises(ValueError, match="one shape"):
+        tfa.flash_attention(q, torch.zeros(1, 64, D), q, None, None, H)
+    with pytest.raises(ValueError, match="not a multiple of n_heads"):
+        tfa.flash_attention(q, q, q, None, None, 5)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        m = q.to("meta")
+        tfa.flash_attention(m, m, m, None, None, H)
+    before = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches)
+    x = q.clone().requires_grad_()
+    tfa.flash_attention(x, x, x, None, 3, H, 0.1).sum().backward()
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention_bwd.launches) == before

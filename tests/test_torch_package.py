@@ -1,6 +1,7 @@
 """Package-level checks of the PyTorch port: it imports neither JAX nor the
-JAX package, and its `serve` entry point starts, answers and stops.  Both
-run in a subprocess, because this test process has JAX loaded
+JAX package, its entry points run on the card unless asked for the CPU,
+and its `serve` entry point starts, answers and stops.  The import and
+serve checks run in a subprocess, because this test process has JAX loaded
 (tests/conftest.py)."""
 import http.client
 import json
@@ -13,6 +14,7 @@ import threading
 from pathlib import Path
 
 import pytest
+import torch
 
 from mmoe_multimodal_rec_tpu_torch import cli
 from util import tiny_cli_flags
@@ -50,7 +52,11 @@ print(json.dumps({"modules": names, "bad": bad}))
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("ops.flash_attention", "ops.cuda_lib", "models.mmoe",
-                "eval.predict", "eval.server", "utils.convert", "cli"):
+                "eval.predict", "eval.server", "utils.convert", "cli",
+                "train.losses", "train.optimizer", "train.step", "train.loop",
+                "train.checkpoint", "train.preemption", "utils.metrics",
+                "data.decode", "data.io", "data.tar_io", "data.synthetic",
+                "data.loader"):
         assert f"mmoe_multimodal_rec_tpu_torch.{mod}" in res["modules"]
     # imports inside functions too: no source line of the port names them
     for path in sorted(PORT_PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
@@ -60,12 +66,31 @@ print(json.dumps({"modules": names, "bad": bad}))
 def test_cli_usage_and_unported_options(capsys):
     assert cli.main([]) == 2
     assert cli.main(["--help"]) == 0
-    assert cli.main(["train"]) == 2
-    assert "serve" in capsys.readouterr().out
+    assert cli.main(["no-such-command"]) == 2
+    usage = capsys.readouterr().out
+    assert all(c in usage for c in ("synth", "train", "serve"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["serve", "--checkpoint=/nowhere", "--device=cpu"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["serve", "--reference-ckpt=/nowhere.pt", "--device=cpu"])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(["train", "--multihost", "--device=cpu"])
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Trainer, Predictor and the CLI's --device all default to cuda, and
+    with no card they raise instead of running on the CPU."""
+    import inspect
+
+    from mmoe_multimodal_rec_tpu_torch.config import tiny_config
+    from mmoe_multimodal_rec_tpu_torch.eval.predict import Predictor
+    from mmoe_multimodal_rec_tpu_torch.train.loop import (Trainer,
+                                                          train_from_config)
+    for fn in (Trainer.__init__, Predictor.__init__, train_from_config):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(tiny_config())
 
 
 def test_serve_entry_point_answers_and_stops(tmp_path):

@@ -29,6 +29,7 @@ from mmoe_multimodal_rec_tpu_torch.data.decode import PATCH_SHAPE
 from mmoe_multimodal_rec_tpu_torch.data.wordpiece import HashTokenizer
 from mmoe_multimodal_rec_tpu_torch.eval.predict import Predictor
 from mmoe_multimodal_rec_tpu_torch.eval.server import PredictionServer
+from mmoe_multimodal_rec_tpu_torch.models import layers as tlayers
 from util import tiny_cli_flags, tiny_config, tiny_tokenizer
 
 BATCH = 4
@@ -123,6 +124,40 @@ def test_merged_predictor_matches_jax_predictor():
     got = apart.predict(USERS, ITEMS)
     np.testing.assert_allclose(got["prob_good"], want["prob_good"],
                                atol=PROB_ATOL)
+
+
+def test_unmerged_predictor_routes_through_flash_attention(monkeypatch):
+    """With the adapters kept apart, every text self-attention of a model
+    whose shapes the kernel takes (hidden 128, 2 heads of 64, 128-token
+    chunks) goes through flash_attention (its plain version on the CPU), and
+    the probabilities equal the merged model's, whose text attention takes
+    flash_attention_packed."""
+    cfg = tiny_config("baseline", batch_size=BATCH)
+    m = cfg.model
+    m.use_flash_attention = True
+    m.text.hidden_size = m.image.hidden_size = 128
+    m.text.num_heads = m.image.num_heads = 2
+    m.text.intermediate_size = m.image.intermediate_size = 256
+    m.text.max_position_embeddings = 128
+    m.packer.max_tok = 128
+    flat = _params(cfg)
+    calls = []
+    real = tlayers.flash_attention
+
+    def counting(q, *args):
+        calls.append(tuple(q.shape))
+        return real(q, *args)
+
+    monkeypatch.setattr(tlayers, "flash_attention", counting)
+    kw = dict(batch_size=BATCH, tokenizer=_port_tokenizer(cfg), device="cpu")
+    merged = Predictor(_port_cfg(cfg), flat, **kw).predict(USERS, ITEMS)
+    assert calls == []
+    apart = Predictor(_port_cfg(cfg), flat, merge_lora=False,
+                      **kw).predict(USERS, ITEMS)
+    assert len(calls) == 2 * m.text.num_layers
+    assert all(c[1:] == (128, 128) for c in calls)
+    for key in ("prob_good", "prob_best"):
+        np.testing.assert_allclose(apart[key], merged[key], atol=PROB_ATOL)
 
 
 @pytest.fixture(scope="module")

@@ -7,15 +7,20 @@ NVIDIA GPU.
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero without the final result line:
   1. device: name, count, and name + power limit from nvidia-smi;
-  2. build: every CUDA kernel of both paths from csrc/ (one nvcc per
-     source, all started together; sm_90a);
+  2. build: every CUDA kernel of the paths from csrc/ (one nvcc per source,
+     all started together; sm_90a), with ptxas's registers and spills per
+     kernel;
   3. kernels: each kernel against its plain PyTorch version at the main
      paths' shapes (bf16 in; the plain forward in fp32 on the same inputs,
      the plain backward on the same bf16 inputs), with the kernel's, the
      plain version's and the library call's times (CUDA events, warm)
      beside the bound computed from the inputs, per call and for one
-     forward's (one micro-batch's) worth of calls timed back to back; the
-     training kernels' dropout mask read back through them;
+     forward's (one training step's) worth of calls timed back to back; the
+     training kernels' dropout masks read back through them.  Phases
+     kernel_check / split_kernel_check for #1-#3, lora_kernels for the
+     fused LoRA dropout #4-#6 (M = 49152, D = 768, r = 8, rate 0.1; the mask
+     read back through #6 in every entry) and packed_bwd_kernel for #7
+     (ViT B = 64, L = 197; and B = 128, L = 384 masked at rate 0.1);
   4. predictor: the full-width Predictor (batch 64, 2 chunks per sample,
      BERT-base x2 + ViT-base, bf16 compute, seeded init weights) scores a
      few batches on the host clock (and, apart, the host packing of their
@@ -27,16 +32,26 @@ exits non-zero without the final result line:
      the CPU;
   5. server: PredictionServer on 127.0.0.1 answers concurrent POSTs (some
      with patch_b64) equal to direct predict();
-  6. train: the full-width baseline Trainer (micro-batch 64, grad_accum 2,
-     2 chunks of 384 tokens per sample, BERT-base x2 with LoRA r=8 on
-     query/value + frozen ViT-base, bf16 compute, dropout 0.1, AdamW with
-     the freeze->warmup LoRA group, lora_fused_dropout=false, no remat) on
-     a seeded random batch staged on the card once: 1 warm-up step, 3 steps
-     on the host clock, 1 step under torch.profiler; launches per step of
-     the three kernels checked, losses finite, no micro-batch skipped;
+  6. train: the full-width baseline Trainer at the default configuration
+     (micro-batch 64, grad_accum 2, 2 chunks of 384 tokens per sample,
+     BERT-base x2 with LoRA r=8 on query/value and the fused LoRA dropout,
+     frozen ViT-base, bf16 compute, dropout 0.1, AdamW with the
+     freeze->warmup LoRA group, no remat) on a seeded random batch staged
+     on the card once: 1 warm-up step, 3 steps on the host clock, 1 step
+     under torch.profiler; launches per step of #1-#7 checked, losses
+     finite, no micro-batch skipped, peak memory;
   7. train_check: the same at 2 text layers, one step on the kernel path
      and one on the plain attention path, same weights, batch and seeds:
-     loss, grad_norm and LoRA gradient gaps against stated limits.
+     loss, grad_norm and LoRA gradient gaps against stated limits; then
+     lora_check: fp32 at 2 text layers, the fused LoRA dropout against the
+     unfused branch (the same masks), the same gaps;
+  8. home_train: the full-width HoME Trainer at the same shape (ViT layers
+     10-11 fine-tuned through #7): launches per step, losses, BatchNorm
+     statistics moved and finite, ViT layer 10-11 gradients finite and
+     non-zero and their weights unmoved (lr 0 while frozen), examples/s,
+     peak memory, device time by kind;
+  9. home_check: HoME at 2 text layers on the kernel path against the plain
+     attention path: loss, grad_norm and ViT layer 10-11 gradient gaps.
 Then one JSON line of kernel records, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Needs one card; exits non-zero
 without one, and outside a checkout of the repository.
@@ -48,6 +63,7 @@ import concurrent.futures
 import http.client
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -73,7 +89,7 @@ VIT = dict(b=64, l=197, heads=12, dh=64, hb=6, calls=12)
 CHECK_LOSS_TOL = 2e-2           # absolute, on a loss near 1.4
 CHECK_NORM_TOL = 5e-2           # relative grad_norm gap
 # LoRA gradients, over every LoRA tensor: max |dg| / max |g| and
-# ||dg|| / ||g|| (lora_grad_gaps).  The plain path rounds the scores to
+# ||dg|| / ||g|| (grad_gaps).  The plain path rounds the scores to
 # bf16 before the softmax (as the JAX einsum path does), so the two paths
 # differ by bf16 rounding: 0.054 and 0.047 on an H100 at this phase's
 # shape.  The limits are 2.2x and 2.1x those readings.  A backward that
@@ -82,6 +98,39 @@ CHECK_NORM_TOL = 5e-2           # relative grad_norm gap
 CHECK_GRAD_TOL = 0.12
 CHECK_GRAD_L2_TOL = 0.10
 TRAIN_LOSS_RANGE = (0.5, 3.0)   # two weighted BCEs near 2 * ln 2 at init
+# HoME's contrastive part: three InfoNCE terms at weight 0.1 over the 64
+# in-batch candidates at temperature 0.07.  Each lies in [0, 2/0.07 + ln 64]
+# (cosine logits are within +-1/0.07); near init each is about ln 64 = 4.16,
+# and on the CPU (tiny HoME, 4 candidates) the part is 0.52-0.60 against
+# 0.3 ln 4 = 0.42.  So the part is checked in (0.3 ln 64 / 2, 0.3 (2/0.07 +
+# ln 64)) and the main part in TRAIN_LOSS_RANGE.
+HOME_CONTRASTIVE_RANGE = (0.15 * math.log(64), 0.3 * (2 / 0.07 + math.log(64)))
+LORA = dict(m=49152, d=768, r=8, rate=0.1)  # 128 chunks x 384 tokens
+LORA_TOL = 2.0 ** -7            # bf16 kernels vs plain versions on the same
+                                # inputs, of the largest value: both round an
+                                # fp32 sum taken in another order to bf16
+# lora_check: fused LoRA dropout vs the unfused branch, fp32 (in bf16 the
+# branches' own rounding of 1/(1-r), a product by 1.109375 against a
+# quotient by 0.9, moves LoRA gradients by 3-7% on a small model, which
+# would hide a dh lacking 1/(1-r) on the LoRA share of the input gradient;
+# in fp32 the branches agree to ~2e-6 there and that dh moves them by
+# ~1e-2, tests/test_torch_train.py).  Limits: 2.5x the readings on an H100
+# (grad_norm 2.4e-7, gradients 9.95e-5 max and 8.6e-5 L2); the loss gap
+# read 0, and its limit is 8 fp32 units in the last place of the loss.
+LORA_CHECK_LOSS_TOL = 1e-6
+LORA_CHECK_NORM_TOL = 6e-7
+LORA_CHECK_GRAD_TOL = 2.5e-4
+LORA_CHECK_GRAD_L2_TOL = 2.5e-4
+# home_check: kernel path vs plain attention path, bf16, on the loss, the
+# step's grad_norm and the ViT layer 10-11 gradients (the plain path rounds
+# the scores to bf16 before the softmax; bias gradients sum 12,608 rows of
+# those differences).  Limits: 2.5x the readings on an H100 (loss 8.0e-4,
+# grad_norm 1.5e-3, gradients 0.129 max on layer 10's out bias and 0.090
+# L2 on layer 11's norm1 bias)
+HOME_CHECK_LOSS_TOL = 2e-3
+HOME_CHECK_NORM_TOL = 4e-3
+HOME_CHECK_GRAD_TOL = 0.32
+HOME_CHECK_GRAD_L2_TOL = 0.22
 
 
 def log(phase: str, **fields) -> None:
@@ -368,6 +417,191 @@ def phase_split_kernels():
     return main, rate0, per_step
 
 
+def bound(nbytes, flops):
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the bf16 tensor-core peak."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def phase_lora_kernels():
+    """#4, #5 and #6 at the main path's shape (M = 49152 rows, D = 768,
+    r = 8, bf16, rate 0.1) against their plain versions, per call and for
+    one training step's calls back to back, and the keep mask read back
+    through #6 with dt @ A^T = 1 in every entry."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as ld
+    m, d, r, rate = LORA["m"], LORA["d"], LORA["r"], LORA["rate"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h = torch.randn(m, d, generator=gen, device="cuda").bfloat16()
+    a = (0.05 * torch.randn(d, r, generator=gen, device="cuda")).bfloat16()
+    dt = torch.randn(m, r, generator=gen, device="cuda").bfloat16()
+    seed = 1234567
+    el = h.element_size()
+    cases = {
+        "lora_dropout_fwd": (lambda: ld.lora_dropout_fwd(h, a, seed, rate),
+                             lambda: ld.lora_dropout_fwd_reference(
+                                 h, a, seed, rate),
+                             (m * d + d * r + m * r) * el),
+        "lora_dropout_da": (lambda: ld.lora_dropout_da(h, dt, seed, rate),
+                            lambda: ld.lora_dropout_da_reference(
+                                h, dt, seed, rate),
+                            (m * d + m * r + d * r) * el),
+        "lora_dropout_dh": (lambda: ld.lora_dropout_dh(dt, a, seed, rate),
+                            lambda: ld.lora_dropout_dh_reference(
+                                dt, a, seed, rate),
+                            (m * r + d * r + m * d) * el),
+    }
+    flops = 2 * m * d * r
+    recs = {}
+    for name, (kernel, plain, nbytes) in cases.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        check(math.isfinite(err) and err <= LORA_TOL * top,
+              f"{name}: kernel vs plain max abs err {err} > {LORA_TOL} x "
+              f"{top}")
+        bound_ms, bound_by = bound(nbytes, flops)
+        recs[name] = {"max_abs_err": err, "err_of_largest": err / top,
+                      "ms": cuda_ms(kernel),
+                      "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "io_bytes": nbytes, "flops": flops}
+        del got, want
+    log("lora_kernels", m=m, d=d, r=r, rate=rate, tol=LORA_TOL,
+        library_ms=None, library_reason="no single PyTorch call computes "
+        "the masked thin product or its gradients", **recs)
+
+    # the keep mask through #6: dh = keep / (1 - rate) where dt @ A^T = 1
+    dh = ld.lora_dropout_dh(torch.ones_like(dt),
+                            torch.full_like(a, 1.0 / r), seed, rate)
+    want = ld.hash_keep_mask((m, d), seed, rate, "cuda")
+    check(torch.equal(dh.float() * (1.0 - rate) > 0.5, want),
+          "lora_dropout_dh keep mask differs from hash_keep_mask")
+    log("lora_mask_read_back", elements=int(want.numel()), equal=True)
+    del dh, want
+
+    per_step = {}
+    launches = expected_launches(train_config())
+    for name, (kernel, plain, _) in cases.items():
+        n = launches[name]
+
+        def calls(fn, n=n):
+            def run():
+                for _ in range(n):
+                    fn()
+            return run
+        per_step[name] = {"calls": n,
+                          "ms": cuda_ms(calls(kernel), iters=3, warmup=1),
+                          "plain_ms": cuda_ms(calls(plain), iters=1,
+                                              warmup=1),
+                          "bound_ms": n * recs[name]["bound_ms"]}
+    log("lora_kernel_step", **per_step)
+    del h, a, dt
+    torch.cuda.empty_cache()
+    return recs, per_step
+
+
+def packed_bwd_case(name, b, l, heads, dh, hb, masked, rate, gen,
+                    timed=True):
+    """#7 at one shape against flash_attention_packed_bwd_reference on the
+    same bf16 inputs; the forward instantiation that stores the statistics
+    gives the serving one's output bit for bit."""
+    import torch
+    import torch.nn.functional as F
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    d = heads * dh
+    qkv = torch.randn(b, l, 3 * d, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(b, l, d, generator=gen, device="cuda").bfloat16()
+    pad = None
+    if masked:
+        lens = torch.randint(1, l + 1, (b,), generator=gen, device="cuda")
+        pad = torch.arange(l, device="cuda")[None, :] >= lens[:, None]
+        pad[b // 2] = True
+    seed = 4321 if rate > 0 else None
+    out, stats = fa._packed_fwd_cuda(qkv, pad, seed, heads, hb, rate, True)
+    serving = fa.flash_attention_packed(qkv, pad, seed, heads, hb, rate)
+    check(torch.equal(out, serving),
+          f"{name}: the statistics instantiation's output differs")
+    kernel = lambda: fa.flash_attention_packed_bwd(qkv, pad, seed, g, heads,
+                                                   hb, rate, stats)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = fa.flash_attention_packed_bwd_reference(qkv, pad, seed, g, heads,
+                                                   hb, rate)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    check(math.isfinite(rel) and rel <= BWD_TOL,
+          f"{name}: packed backward vs plain max rel err {rel} > {BWD_TOL}")
+    rec = {"case": name, "b": b, "l": l, "heads": heads, "dh": dh,
+           "masked": masked, "rate": rate, "max_abs_err": err,
+           "max_err_of_largest_grad": rel, "tol": BWD_TOL}
+    del got, want
+    fns = None
+    if timed:
+        el = qkv.element_size()
+        nbytes = (7 * b * l * d * el + b * heads * l * 8
+                  + (b * l if masked else 0))
+        flops = 10 * b * l * l * d
+        plain = lambda: fa.flash_attention_packed_bwd_reference(
+            qkv, pad, seed, g, heads, hb, rate)
+        # SDPA on the unpacked heads [B, H, L, dh] (layout change untimed)
+        x = qkv.reshape(b, l, heads // hb, 3, hb, dh)
+        sq, sk, sv = (x[:, :, :, i].reshape(b, l, heads, dh).transpose(1, 2)
+                      .contiguous().requires_grad_() for i in range(3))
+        sg = g.reshape(b, l, heads, dh).transpose(1, 2).contiguous()
+        lib_fwd = lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                         dropout_p=rate)
+
+        def lib_fwd_bwd():
+            lib_fwd().backward(sg)
+        bound_ms, bound_by = bound(nbytes, flops)
+        lib_f = cuda_ms(lib_fwd)
+        rec.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, 2, 1),
+                   library_ms=cuda_ms(lib_fwd_bwd) - lib_f,
+                   bound_ms=bound_ms, bound_by=bound_by, io_bytes=nbytes,
+                   flops=flops,
+                   fwd_serving_ms=cuda_ms(lambda: fa.flash_attention_packed(
+                       qkv, pad, seed, heads, hb, rate)),
+                   fwd_stats_ms=cuda_ms(lambda: fa._packed_fwd_cuda(
+                       qkv, pad, seed, heads, hb, rate, True)))
+        fns = (kernel, plain, lib_fwd_bwd, lib_fwd)
+    log("packed_bwd_kernel", **rec)
+    return rec, fns
+
+
+def phase_packed_bwd_kernel():
+    """#7 at HoME's ViT shape (B = 64, L = 197, rate 0, no mask), timed, and
+    at the text shape masked at rate 0.1; then one HoME step's calls (2
+    layers x 2 micro-batches) back to back."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    vit, fns = packed_bwd_case("vit", VIT["b"], VIT["l"], VIT["heads"],
+                               VIT["dh"], VIT["hb"], False, 0.0, gen)
+    text, _ = packed_bwd_case("text_dropout_0.1", TEXT["b"], TEXT["l"],
+                              TEXT["heads"], TEXT["dh"], TEXT["hb"], True,
+                              0.1, gen, timed=False)
+    n = expected_launches(home_config())["flash_attention_packed_bwd"]
+    kernel, plain, lib_fwd_bwd, lib_fwd = fns
+
+    def calls(fn):
+        def run():
+            for _ in range(n):
+                fn()
+        return run
+    step = {"calls": n, "ms": cuda_ms(calls(kernel), iters=5, warmup=1),
+            "plain_ms": cuda_ms(calls(plain), iters=1, warmup=1),
+            "library_ms": (cuda_ms(calls(lib_fwd_bwd), iters=5, warmup=1)
+                           - cuda_ms(calls(lib_fwd), iters=5, warmup=1)),
+            "bound_ms": n * vit["bound_ms"]}
+    log("packed_bwd_kernel_step", **step)
+    torch.cuda.empty_cache()
+    return vit, text, step
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the full-width Predictor
 # ---------------------------------------------------------------------------
@@ -414,13 +648,20 @@ def small_config():
 
 
 def kind_of(kernel_name: str) -> str:
-    """The port's kernels by wrapper (csrc/flash_attention_fwd.cu has one
-    instantiation per layout), then matrix products, then the rest."""
+    """The port's kernels by wrapper (the attention kernels' first template
+    flag tells split from packed), then matrix products, then the rest."""
     low = kernel_name.lower()
+    for kernel, kind in (("lora_fwd", "lora_dropout_fwd"),
+                         ("lora_da", "lora_dropout_da"),
+                         ("lora_dh", "lora_dropout_dh")):
+        if kernel in low:
+            return kind
     if "attention_bwd" in low:
-        return "flash_attention_bwd"
+        return ("flash_attention_packed_bwd"
+                if re.search(r"_bf16<\d+, true>", low)
+                else "flash_attention_bwd")
     if "attention_fwd" in low:
-        return ("flash_attention" if ", true>" in low
+        return ("flash_attention" if re.search(r"_bf16<\d+, true", low)
                 else "flash_attention_packed")
     if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
         return "matmul"
@@ -477,7 +718,7 @@ def phase_predictor(batch: int, forwards: int, profiled_forwards: int):
 
     # the main path: counts from 0, warmup + scored batches, counts read
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_packed.launches = 0
+    reset_launches()
     pred.warmup()
     request_ms, pack_ms, outs = [], [], []
     budget = cfg.model.packer.chunk_budget
@@ -492,7 +733,8 @@ def phase_predictor(batch: int, forwards: int, profiled_forwards: int):
     prof_outs, window_ms, by_kind, top = profiled(
         lambda: [pred.predict(*batch) for batch in batches[forwards:]])
     outs += prof_outs
-    launches = fa.flash_attention_packed.launches
+    counts = read_launches()
+    launches = counts.pop("flash_attention_packed")
     peak = torch.cuda.max_memory_allocated()
     n_fwd = forwards + profiled_forwards + len(pred.buckets)
     kernel_ms = by_kind.get("flash_attention_packed", 0.0) / profiled_forwards
@@ -508,6 +750,8 @@ def phase_predictor(batch: int, forwards: int, profiled_forwards: int):
     check(launches == 36 * n_fwd,
           f"flash_attention_packed launched {launches} times in {n_fwd} "
           f"forwards, expected 36 per forward")
+    check(not any(counts.values()),
+          f"serving launched a training kernel: {counts}")
     for out in outs:
         for key in ("prob_good", "prob_best"):
             p = out[key]
@@ -634,16 +878,73 @@ def phase_server(pred, n_requests: int = 6, per_request: int = 5):
 def train_config(text_layers: int = 12):
     """bench.py --mode train's shape (micro-batch 64, grad_accum 2, 2
     chunks per sample) on the defaults (BERT-base x2 with LoRA r=8 on
-    query/value, ViT-base, bf16 compute, fp32 params, dropout 0.1), with
-    the unfused LoRA dropout and no remat."""
+    query/value and the fused LoRA dropout, ViT-base, bf16 compute, fp32
+    params, dropout 0.1), no remat."""
     from mmoe_multimodal_rec_tpu_torch.config import Config
     cfg = Config()
     cfg.train.batch_size = 64
     cfg.train.optim.grad_accum = 2
     cfg.model.packer.chunk_budget = 128
-    cfg.model.text.lora_fused_dropout = False
     cfg.model.text.num_layers = text_layers
     return cfg
+
+
+def home_config(text_layers: int = 12):
+    """The same shape on the HoME model (bench.py's "HoME train")."""
+    cfg = train_config(text_layers)
+    cfg.model.variant = "home"
+    return cfg
+
+
+def expected_launches(cfg):
+    """Kernel launches per optimizer step, from the configuration.  Each
+    micro-batch runs every ViT layer's self-attention through #1 (the
+    instantiation that stores the softmax statistics where the layer needs
+    a gradient: HoME's last two, which #7 then runs backward through),
+    every text layer's of both encoders through #2 and #3, and every LoRA
+    site (the targets of every text layer of both encoders) through #4
+    and #5 and, where its input needs a gradient, #6: every layer but the
+    first, whose input comes from frozen embeddings and LayerNorm."""
+    m = cfg.model
+    accum = cfg.train.optim.grad_accum
+    text = 2 * m.text.num_layers
+    sites = len(m.text.lora_targets)
+    fine_tuned = 2 if m.variant == "home" else 0
+    return {"flash_attention_packed": accum * m.image.num_layers,
+            "flash_attention_packed_stats": accum * fine_tuned,
+            "flash_attention_packed_bwd": accum * fine_tuned,
+            "flash_attention": accum * text,
+            "flash_attention_bwd": accum * text,
+            "lora_dropout_fwd": accum * text * sites,
+            "lora_dropout_da": accum * text * sites,
+            "lora_dropout_dh": accum * (text - 2) * sites}
+
+
+def kernel_wrappers():
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as ld
+    return {"flash_attention_packed": fa.flash_attention_packed,
+            "flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "lora_dropout_fwd": ld.lora_dropout_fwd,
+            "lora_dropout_da": ld.lora_dropout_da,
+            "lora_dropout_dh": ld.lora_dropout_dh,
+            "flash_attention_packed_bwd": fa.flash_attention_packed_bwd}
+
+
+def reset_launches() -> None:
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+    fa.flash_attention_packed.stats_launches = 0
+
+
+def read_launches():
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    out = {k: w.launches for k, w in kernel_wrappers().items()}
+    out["flash_attention_packed_stats"] = \
+        fa.flash_attention_packed.stats_launches
+    return out
 
 
 def random_batch(cfg, seed: int):
@@ -678,24 +979,25 @@ def stacked(cfg, trainer, seed: int):
                               for k, v in random_batch(cfg, seed).items()})
 
 
-def phase_train(timed_steps: int = 3):
-    """The training main path: counts from 0, 1 warm-up step, `timed_steps`
-    on the host clock, 1 step under torch.profiler, counts read."""
+def drive_trainer(cfg, timed_steps: int = 3, keep=None):
+    """A training main path: a Trainer on the card, the batch staged once,
+    counts from 0, 1 warm-up step, `timed_steps` on the host clock, 1 step
+    under torch.profiler, counts read.  Checks the launches per step
+    against `expected_launches`, finite losses and no skipped
+    micro-batch.  Returns (trainer, batch, run record, profile record,
+    copies taken before the first step of the trainable parameters that
+    `keep` names)."""
     import torch
-    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
     from mmoe_multimodal_rec_tpu_torch.train.loop import Trainer
-    cfg = train_config()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device="cuda")
     init_s = time.perf_counter() - t0
+    kept = {k: p.detach().clone() for k, p in trainer.trainable.items()
+            if keep is not None and keep(k)}
     batch = stacked(cfg, trainer, seed=0)
-    examples = cfg.train.batch_size * cfg.train.optim.grad_accum
-    wrappers = (fa.flash_attention_packed, fa.flash_attention,
-                fa.flash_attention_bwd)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers:
-        w.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     metrics = [trainer.run_step(batch)]
     warm_s = time.perf_counter() - t0
@@ -708,32 +1010,52 @@ def phase_train(timed_steps: int = 3):
     prof_m, window_ms, by_kind, top = profiled(
         lambda: trainer.run_step(batch))
     metrics.append(prof_m)
-    launches = [w.launches for w in wrappers]
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     steps = len(metrics)
     for m in metrics:
-        check(math.isfinite(m["loss"]) and TRAIN_LOSS_RANGE[0] < m["loss"]
-              < TRAIN_LOSS_RANGE[1], f"train loss {m['loss']}")
-        check(m["skipped_micro"] == 0, f"skipped micro-batches: {m}")
+        check(math.isfinite(m["loss"]) and m["skipped_micro"] == 0,
+              f"{cfg.model.variant} step: {m}")
     check(trainer.step == steps, f"{trainer.step} optimizer steps, "
                                  f"expected {steps}")
-    per_step = [n / steps for n in launches]
-    check(per_step == [24.0, 48.0, 48.0],
-          f"launches per step of #1/#2/#3: {per_step}, expected 24/48/48")
+    per_step = {k: n / steps for k, n in launches.items()}
+    want = expected_launches(cfg)
+    check(per_step == want, f"launches per step {per_step}, expected {want}")
+    for kind, n in want.items():
+        if n and kind != "flash_attention_packed_stats":
+            check(by_kind.get(kind, 0.0) > 0,
+                  f"no device time of {kind} in the profiled step")
     device_ms = sum(by_kind.values())
-    ms_sorted = sorted(step_ms)
-    log("train", examples_per_step=examples, steps=steps, init_s=init_s,
-        warmup_step_s=warm_s, step_ms=step_ms,
-        examples_per_sec=examples / (ms_sorted[len(ms_sorted) // 2] / 1e3),
-        peak_bytes=peak, launches=launches, launches_per_step=per_step,
-        losses=[m["loss"] for m in metrics],
-        grad_norms=[m["grad_norm"] for m in metrics])
-    log("train_profile", window_ms=window_ms, device_ms=device_ms,
-        device_busy_share=device_ms / window_ms,
-        device_ms_by_kind=by_kind, top_kernels_ms=top)
+    examples = cfg.train.batch_size * cfg.train.optim.grad_accum
+    run = {"examples_per_step": examples, "steps": steps, "init_s": init_s,
+           "warmup_step_s": warm_s, "step_ms": step_ms,
+           "examples_per_sec": examples / (sorted(step_ms)[len(step_ms) // 2]
+                                           / 1e3),
+           "peak_bytes": peak, "launches": launches,
+           "launches_per_step": per_step,
+           "losses": [m["loss"] for m in metrics],
+           "main_losses": [m["main_loss"] for m in metrics],
+           "contrastive_losses": [m["contrastive_loss"] for m in metrics],
+           "grad_norms": [m["grad_norm"] for m in metrics]}
+    prof = {"window_ms": window_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / window_ms,
+            "device_ms_by_kind": by_kind, "top_kernels_ms": top}
+    return trainer, batch, run, prof, kept
+
+
+def phase_train(timed_steps: int = 3):
+    """The baseline training main path at the default configuration."""
+    import torch
+    trainer, batch, run, prof, _ = drive_trainer(train_config(),
+                                                 timed_steps)
+    for loss in run["losses"]:
+        check(TRAIN_LOSS_RANGE[0] < loss < TRAIN_LOSS_RANGE[1],
+              f"train loss {loss}")
+    log("train", **run)
+    log("train_profile", **prof)
     del trainer, batch
     torch.cuda.empty_cache()
-    return launches, by_kind
+    return run["launches"], prof["device_ms_by_kind"]
 
 
 def check_trainer(cfg, device: str):
@@ -751,9 +1073,10 @@ def check_trainer(cfg, device: str):
     return trainer, lora
 
 
-def micro_lora_grads(trainer, lora, micro):
-    """One micro-batch's loss, in training mode with step 0's first dropout
-    stream, and its gradients of the LoRA parameters."""
+def micro_grads(trainer, params, micro):
+    """One micro-batch's loss (HoME's contrastive terms included), in
+    training mode with step 0's first dropout stream, and its gradients of
+    `params` (name -> parameter)."""
     import torch
     from mmoe_multimodal_rec_tpu_torch.train.losses import total_loss
     from mmoe_multimodal_rec_tpu_torch.train.loop import dropout_generator
@@ -761,67 +1084,179 @@ def micro_lora_grads(trainer, lora, micro):
     out = trainer.model(micro, deterministic=False,
                         rng=dropout_generator(cfg.train.seed + 1, 0, 0))
     loss = total_loss(out.logit_good, out.logit_best, micro["label_good"],
-                      micro["label_best"], cfg.train.loss).total
-    grads = torch.autograd.grad(loss, list(lora.values()))
-    return loss.item(), dict(zip(lora, grads))
+                      micro["label_best"], cfg.train.loss, aux=out.aux,
+                      home=cfg.model.variant == "home").total
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.item(), dict(zip(params, grads))
 
 
-def lora_grad_gaps(got, want):
-    """The largest, over LoRA tensors, of max |dg| / max |g| and of
-    ||dg|| / ||g||."""
-    pairs = [(got[k].float(), want[k].float()) for k in want]
-    return (max((g - w).abs().max().item() / w.abs().max().item()
-                for g, w in pairs),
-            max((g - w).norm().item() / w.norm().item() for g, w in pairs))
+def grad_gaps(got, want):
+    """The largest, over tensors, of max |dg| / max |g| and of
+    ||dg|| / ||g||, and the names of the tensors they come from."""
+    gaps = {k: ((got[k].float() - w).abs().max().item() / w.abs().max().item(),
+                (got[k].float() - w).norm().item() / w.norm().item())
+            for k, w in ((k, v.float()) for k, v in want.items())}
+    worst = [max(gaps, key=lambda k, i=i: gaps[k][i]) for i in (0, 1)]
+    return gaps[worst[0]][0], gaps[worst[1]][1], worst
 
 
-def phase_train_check(text_layers: int = 2):
-    """One step at full width and `text_layers` text layers on the kernel
-    path and on the plain attention path (use_flash_attention=false:
-    einsum attention whose dropout hashes the same counters), from the same
-    weights, batch and seeds: the first micro-batch's loss and LoRA
-    gradients, then the whole step's loss and grad_norm."""
+def compare_paths(phase, cfgs, select, counter, tol):
+    """One micro-batch's loss and gradients of the trainable parameters
+    that `select` names, then one whole step, on each of two
+    configurations (the kernel path first) from the same weights, batch and
+    seeds; their gaps against `tol` (loss, grad_norm, max and L2 gradient
+    gaps).  The first must launch the `counter` wrapper's kernel and the
+    second must not."""
     import torch
-    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
-    runs = {}
-    for flash in (True, False):
-        cfg = train_config(text_layers)
-        cfg.model.use_flash_attention = flash
-        trainer, lora = check_trainer(cfg, "cuda")
+    runs = []
+    for cfg in cfgs:
+        trainer, _ = check_trainer(cfg, "cuda")
+        params = {k: p for k, p in trainer.trainable.items() if select(k)}
         batch = stacked(cfg, trainer, seed=1)
-        before = (fa.flash_attention.launches,
-                  fa.flash_attention_bwd.launches)
-        loss, grads = micro_lora_grads(trainer, lora,
-                                       {k: v[0] for k, v in batch.items()})
+        wrapper = kernel_wrappers()[counter]
+        before = wrapper.launches
+        loss, grads = micro_grads(trainer, params,
+                                  {k: v[0] for k, v in batch.items()})
         step = trainer.run_step(batch)
-        launched = (fa.flash_attention.launches - before[0],
-                    fa.flash_attention_bwd.launches - before[1])
-        check(launched[0] > 0 if flash else launched == (0, 0),
-              f"flash={flash}: launches {launched}")
-        runs[flash] = (loss, grads, step)
-        del trainer, lora, batch, grads
+        runs.append((loss, grads, step, wrapper.launches - before))
+        del trainer, params, batch
         torch.cuda.empty_cache()
-    (lk, gk, sk), (lp, gp, sp) = runs[True], runs[False]
-    grad_gap, grad_gap_l2 = lora_grad_gaps(gk, gp)
-    rec = {"text_layers": text_layers, "micro_loss": [lk, lp],
-           "micro_loss_gap": abs(lk - lp), "step_loss": [sk["loss"],
-                                                         sp["loss"]],
+    (lk, gk, sk, nk), (lp, gp, sp, np_) = runs
+    check(nk > 0 and np_ == 0, f"{phase}: {counter} launches {nk} / {np_}")
+    check(sk["skipped_micro"] == sp["skipped_micro"] == 0,
+          f"{phase}: skipped micro-batches")
+    grad_gap, grad_gap_l2, worst = grad_gaps(gk, gp)
+    rec = {"text_layers": cfgs[0].model.text.num_layers,
+           "compute_dtype": cfgs[0].model.compute_dtype,
+           "tensors": len(gp), "micro_loss": [lk, lp],
+           "micro_loss_gap": abs(lk - lp),
+           "step_loss": [sk["loss"], sp["loss"]],
            "step_loss_gap": abs(sk["loss"] - sp["loss"]),
            "grad_norm": [sk["grad_norm"], sp["grad_norm"]],
            "grad_norm_rel_gap": abs(sk["grad_norm"] - sp["grad_norm"])
            / sp["grad_norm"],
-           "lora_grad_max_rel_gap": grad_gap,
-           "lora_grad_l2_rel_gap": grad_gap_l2,
-           "tol": {"loss": CHECK_LOSS_TOL, "grad_norm": CHECK_NORM_TOL,
-                   "lora_grad": CHECK_GRAD_TOL,
-                   "lora_grad_l2": CHECK_GRAD_L2_TOL}}
-    log("train_check", **rec)
-    check(rec["micro_loss_gap"] <= CHECK_LOSS_TOL
-          and rec["step_loss_gap"] <= CHECK_LOSS_TOL, "loss gap")
-    check(rec["grad_norm_rel_gap"] <= CHECK_NORM_TOL, "grad_norm gap")
-    check(grad_gap <= CHECK_GRAD_TOL and grad_gap_l2 <= CHECK_GRAD_L2_TOL,
-          "LoRA gradient gap")
+           "grad_max_rel_gap": grad_gap, "grad_l2_rel_gap": grad_gap_l2,
+           "worst_tensors": worst,
+           "tol": dict(zip(("loss", "grad_norm", "grad", "grad_l2"), tol))}
+    log(phase, **rec)
+    check(rec["micro_loss_gap"] <= tol[0]
+          and rec["step_loss_gap"] <= tol[0], f"{phase}: loss gap")
+    check(rec["grad_norm_rel_gap"] <= tol[1], f"{phase}: grad_norm gap")
+    check(grad_gap <= tol[2] and grad_gap_l2 <= tol[3],
+          f"{phase}: gradient gap")
     return rec
+
+
+def phase_train_check(text_layers: int = 2):
+    """train_check: the kernel path against the plain attention path
+    (use_flash_attention=false: einsum attention whose dropout hashes the
+    same counters), on the LoRA gradients.  lora_check: in fp32, the fused
+    LoRA dropout against the unfused branch (HashDropout, then the thin
+    matmul: the same masks), on the LoRA gradients."""
+    cfgs = []
+    for flash in (True, False):
+        cfg = train_config(text_layers)
+        cfg.model.use_flash_attention = flash
+        cfgs.append(cfg)
+    lora = lambda name: "lora_" in name
+    train = compare_paths("train_check", cfgs, lora, "flash_attention",
+                          (CHECK_LOSS_TOL, CHECK_NORM_TOL, CHECK_GRAD_TOL,
+                           CHECK_GRAD_L2_TOL))
+    cfgs = []
+    for fused in (True, False):
+        cfg = train_config(text_layers)
+        cfg.model.compute_dtype = "float32"
+        cfg.model.use_flash_attention = False
+        cfg.model.text.lora_fused_dropout = fused
+        cfgs.append(cfg)
+    fused = compare_paths("lora_check", cfgs, lora, "lora_dropout_fwd",
+                          (LORA_CHECK_LOSS_TOL, LORA_CHECK_NORM_TOL,
+                           LORA_CHECK_GRAD_TOL, LORA_CHECK_GRAD_L2_TOL))
+    return train, fused
+
+
+def vit_fine_tuned(name: str) -> bool:
+    return name.startswith(("img_expert.backbone.layer_10.",
+                            "img_expert.backbone.layer_11."))
+
+
+def vit_fine_tuned_but_key_bias(name: str) -> bool:
+    """The fine-tuned ViT tensors whose gradient is not zero in exact
+    arithmetic: a key bias adds the constant q.b_k to all of a query's
+    scores, which the softmax ignores, so both paths return rounding noise
+    for it (norm 2.9e-6 on an H100, against 0.65 for the largest)."""
+    return vit_fine_tuned(name) and not name.endswith("attention.key.bias")
+
+
+def phase_home_train(timed_steps: int = 3):
+    """The HoME training main path at full width: launches (#7 through the
+    fine-tuned ViT layers), losses, the BatchNorm statistics moved and
+    finite, ViT layer 10-11 gradients finite and non-zero and their weights
+    unmoved (lr 0 for home_freeze_steps)."""
+    import torch
+    cfg = home_config()
+    check(cfg.train.optim.home_freeze_steps > timed_steps + 2,
+          "the fine-tuned ViT layers must still be frozen")
+    trainer, batch, run, prof, kept = drive_trainer(cfg, timed_steps,
+                                                    keep=vit_fine_tuned)
+    for main, cl in zip(run["main_losses"], run["contrastive_losses"]):
+        check(TRAIN_LOSS_RANGE[0] < main < TRAIN_LOSS_RANGE[1]
+              and HOME_CONTRASTIVE_RANGE[0] < cl < HOME_CONTRASTIVE_RANGE[1],
+              f"HoME losses {main} + {cl}")
+    buffers = dict(trainer.model.named_buffers())
+    check(len(buffers) == 12 and all(torch.isfinite(b).all()
+                                     for b in buffers.values()),
+          "BatchNorm statistics")
+    moved = [k for k, b in buffers.items() if not torch.equal(
+        b, torch.zeros_like(b) if k.endswith("mean") else torch.ones_like(b))]
+    check(len(moved) == len(buffers), f"BatchNorm statistics moved: {moved}")
+    ft = {k: p for k, p in trainer.trainable.items() if vit_fine_tuned(k)}
+    check(len(ft) == len(kept) > 0
+          and all(torch.equal(p, kept[k]) for k, p in ft.items()),
+          "the frozen fine-tuned ViT weights moved")
+    _, grads = micro_grads(trainer, ft, {k: v[0] for k, v in batch.items()})
+    norms = {k: g.float().norm().item() for k, g in grads.items()}
+    check(all(math.isfinite(n) and n > 0 for n in norms.values()),
+          f"ViT layer 10-11 gradients: {norms}")
+    run["vit_ft_grad_norm_range"] = [min(norms.values()),
+                                     max(norms.values())]
+    run["batch_norm_var_range"] = [min(b.min().item() for k, b in
+                                       buffers.items() if k.endswith("var")),
+                                   max(b.max().item() for k, b in
+                                       buffers.items() if k.endswith("var"))]
+    log("home_train", **run)
+    log("home_train_profile", **prof)
+    del trainer, batch, ft, grads, kept
+    torch.cuda.empty_cache()
+    return run["launches"], prof["device_ms_by_kind"]
+
+
+def phase_home_check(text_layers: int = 2):
+    """HoME at `text_layers` text layers on the kernel path against the
+    plain attention path (einsum everywhere, autograd through it), on the
+    gradients of ViT layers 10-11 (but the key biases', zero in exact
+    arithmetic), which #7 computes on the kernel path."""
+    cfgs = []
+    for flash in (True, False):
+        cfg = home_config(text_layers)
+        cfg.model.use_flash_attention = flash
+        cfgs.append(cfg)
+    return compare_paths("home_check", cfgs, vit_fine_tuned_but_key_bias,
+                         "flash_attention_packed_bwd",
+                         (HOME_CHECK_LOSS_TOL, HOME_CHECK_NORM_TOL,
+                          HOME_CHECK_GRAD_TOL, HOME_CHECK_GRAD_L2_TOL))
+
+
+def ptxas_report(log_text: str):
+    """ptxas's registers and spills, per kernel (its mangled name)."""
+    out, name = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.strip()}")
+    return out
 
 
 def build_all(names):
@@ -832,11 +1267,9 @@ def build_all(names):
         libs = dict(zip(names, pool.map(cuda_lib.build, names)))
     seconds = time.perf_counter() - t0
     for name, lib in libs.items():
-        ptxas = [ln.strip() for ln in
-                 lib.with_name(lib.name + ".log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
         log("build", source=f"csrc/{name}.cu", seconds=seconds,
-            library=lib.name, ptxas=ptxas)
+            library=lib.name, ptxas=ptxas_report(
+                lib.with_name(lib.name + ".log").read_text()))
 
 
 def main() -> int:
@@ -851,10 +1284,12 @@ def main() -> int:
     smi = nvidia_smi()
     log("device", name=name, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
-    build_all(("flash_attention_fwd", "flash_attention_bwd"))
+    build_all(("flash_attention_fwd", "flash_attention_bwd", "lora_dropout"))
 
     (text, vit, drop), forward = phase_kernels()
     split, split0, split_step = phase_split_kernels()
+    lora, lora_step = phase_lora_kernels()
+    pbwd, pbwd_text, pbwd_step = phase_packed_bwd_kernel()
     pred, launches, kernel_ms = phase_predictor(batch=64, forwards=3,
                                                 profiled_forwards=2)
     phase_server(pred)
@@ -862,40 +1297,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, train_ms = phase_train()
     phase_train_check()
+    home_launches, home_ms = phase_home_train()
+    phase_home_check()
 
     calls = lambda key: TEXT["calls"] * text[key] + VIT["calls"] * vit[key]
     source = "mmoe_multimodal_rec_tpu_torch/csrc/"
     replaces = "mmoe_multimodal_rec_tpu/ops/flash_attention.py:"
-    for wrapper in ("flash_attention", "flash_attention_bwd"):
-        check(train_ms.get(wrapper, 0.0) > 0,
-              f"no device time of {wrapper} in the profiled training step")
-    split_records = []
-    for side, wrapper, line, err in (
-            ("fwd", "flash_attention", 229,
-             max(split["fwd_max_abs_err"], split0["fwd_max_abs_err"])),
-            ("bwd", "flash_attention_bwd", 374,
-             max(split["bwd_max_abs_err"], split0["bwd_max_abs_err"]))):
-        step = split_step[side]
-        split_records.append({
-            "name": wrapper, "route": "cuda",
-            "source": f"{source}flash_attention_{side}.cu",
-            "replaces": f"{replaces}{line}",
-            "launches": train_launches[1 if side == "fwd" else 2],
-            "max_abs_err": err,
-            # per training step (2 micro-batches x 24 calls).  ms: the
-            # kernel's device time in the train phase's profiled step; the
-            # rest: one step's worth of calls timed back to back
-            "ms": train_ms[wrapper], "ms_back_to_back": step["ms"],
-            "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
-            "bound_ms": step["bound_ms"],
-            "bound_by": split[f"{side}_bound_by"],
-            "per_call": {k[len(side) + 1:]: v for k, v in split.items()
-                         if k.startswith(side + "_")}})
-    print(json.dumps({"kernels": [{
+    records = [{
         "name": "flash_attention_packed", "route": "cuda",
         "source": f"{source}flash_attention_fwd.cu",
         "replaces": f"{replaces}446",
-        "launches": launches, "launches_train": train_launches[0],
+        "launches": launches,
+        "launches_train": train_launches["flash_attention_packed"],
+        "launches_home": home_launches["flash_attention_packed"],
+        "stats_launches_home":
+            home_launches["flash_attention_packed_stats"],
         "max_abs_err": max(text["max_abs_err"], vit["max_abs_err"],
                            drop["max_abs_err"]),
         # per serving forward (24 text + 12 ViT calls).  ms: the kernel's
@@ -910,7 +1326,68 @@ def main() -> int:
                                  ("ms", "plain_ms", "bound_ms",
                                   "library_ms", "max_abs_err")}
                      for c in (text, vit, drop)},
-    }] + split_records}), flush=True)
+        "vit_fwd_ms": {"serving": pbwd["fwd_serving_ms"],
+                       "statistics": pbwd["fwd_stats_ms"]},
+    }]
+    for side, wrapper, line, err in (
+            ("fwd", "flash_attention", 229,
+             max(split["fwd_max_abs_err"], split0["fwd_max_abs_err"])),
+            ("bwd", "flash_attention_bwd", 374,
+             max(split["bwd_max_abs_err"], split0["bwd_max_abs_err"]))):
+        step = split_step[side]
+        records.append({
+            "name": wrapper, "route": "cuda",
+            "source": f"{source}flash_attention_{side}.cu",
+            "replaces": f"{replaces}{line}",
+            "launches": train_launches[wrapper],
+            "max_abs_err": err,
+            # per training step (2 micro-batches x 24 calls).  ms: the
+            # kernel's device time in the train phase's profiled step; the
+            # rest: one step's worth of calls timed back to back
+            "ms": train_ms[wrapper], "ms_back_to_back": step["ms"],
+            "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
+            "bound_ms": step["bound_ms"],
+            "bound_by": split[f"{side}_bound_by"],
+            "per_call": {k[len(side) + 1:]: v for k, v in split.items()
+                         if k.startswith(side + "_")}})
+    for wrapper, line in (("lora_dropout_fwd", 170), ("lora_dropout_da", 199),
+                          ("lora_dropout_dh", 232)):
+        rec, step = lora[wrapper], lora_step[wrapper]
+        records.append({
+            "name": wrapper, "route": "cuda",
+            "source": f"{source}lora_dropout.cu",
+            "replaces": f"mmoe_multimodal_rec_tpu/ops/lora_dropout.py:{line}",
+            "launches": train_launches[wrapper],
+            "launches_home": home_launches[wrapper],
+            "max_abs_err": rec["max_abs_err"],
+            # per training step (step["calls"] calls).  ms: the kernel's
+            # device time in the train phase's profiled step; the rest: one
+            # step's worth of calls timed back to back (phase_lora_kernels)
+            "ms": train_ms[wrapper], "ms_back_to_back": step["ms"],
+            "plain_ms": step["plain_ms"], "library_ms": None,
+            "library_reason": "no single PyTorch call computes the same "
+                              "function",
+            "bound_ms": step["bound_ms"], "bound_by": rec["bound_by"],
+            "per_call": {k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "max_abs_err",
+                                             "err_of_largest")}})
+    records.append({
+        "name": "flash_attention_packed_bwd", "route": "cuda",
+        "source": f"{source}flash_attention_bwd.cu",
+        "replaces": f"{replaces}491",
+        "launches": home_launches["flash_attention_packed_bwd"],
+        "max_abs_err": max(pbwd["max_abs_err"], pbwd_text["max_abs_err"]),
+        # per HoME training step (2 layers x 2 micro-batches).  ms: the
+        # kernel's device time in home_train's profiled step; the rest: one
+        # step's worth of calls at the ViT shape timed back to back
+        "ms": home_ms["flash_attention_packed_bwd"],
+        "ms_back_to_back": pbwd_step["ms"],
+        "plain_ms": pbwd_step["plain_ms"],
+        "library_ms": pbwd_step["library_ms"],
+        "bound_ms": pbwd_step["bound_ms"], "bound_by": pbwd["bound_by"],
+        "per_call": {k: pbwd[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms", "max_abs_err")}})
+    print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

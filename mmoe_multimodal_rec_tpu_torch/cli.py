@@ -2,8 +2,8 @@
 
   python -m mmoe_multimodal_rec_tpu_torch synth --output=shards --samples=48
   python -m mmoe_multimodal_rec_tpu_torch train \\
-      --data.train_pattern='shards/*.tar.gz' --data.allow_hash_tokenizer=true \\
-      --model.text.lora_fused_dropout=false
+      --data.train_pattern='shards/*.tar.gz' --data.allow_hash_tokenizer=true
+      (add --model.variant=home for the HoME model)
   python -m mmoe_multimodal_rec_tpu_torch serve --batch-size=64 \\
       --data.allow_hash_tokenizer=true
 

@@ -1,11 +1,24 @@
-// Split-q/k/v self-attention backward for Hopper (sm_90a).
+// Self-attention backward for Hopper (sm_90a), split-q/k/v and packed-qkv.
 //
-// Replaces the Pallas TPU kernel mmoe_multimodal_rec_tpu/ops/
-// flash_attention.py `_fused_attention_bwd_impl` -> `_bwd_kernel` ->
-// `_head_bwd` (the backward of public API `flash_attention`), and, at rate
-// 0, the plain XLA recompute that `_vjp_bwd` runs there instead.  Python
-// wrapper and plain PyTorch version (`flash_attention_bwd_reference`):
+// Replaces two Pallas TPU kernels of mmoe_multimodal_rec_tpu/ops/
+// flash_attention.py, which share one body (`_head_bwd`):
+// - `_fused_attention_bwd_impl` -> `_bwd_kernel` (the backward of public
+//   API `flash_attention`), and, at rate 0, the plain XLA recompute that
+//   `_vjp_bwd` runs there instead;
+// - `_fused_attention_bwd_packed_impl` -> `_bwd_kernel_packed` (the
+//   backward of `flash_attention_packed`: HoME's fine-tuned ViT layers).
+// Python wrappers and plain PyTorch versions (`flash_attention_bwd_reference`,
+// `flash_attention_packed_bwd_reference`):
 // mmoe_multimodal_rec_tpu_torch/ops/flash_attention.py.
+//
+// Layouts.  Split: q, k, v, dO, dq, dk, dv are [B, L, D] each (head h at
+// column h*dh).  Packed: q, k, v are read in place from the
+// group-interleaved qkv [B, L, 3D] as the forward reads them (row stride 3D,
+// head h at column (h / hb) * 3w + (h % hb) * dh, k and v w = hb*dh columns
+// after q), dO is [B, L, D] head-major, and dq, dk, dv are written into one
+// dqkv [B, L, 3D] in the same layout, so the projection's backward is one
+// matmul.  One template parameter tells the two apart; the split
+// instantiation is the code it was before the packed one was added.
 //
 // What it computes, per (batch row b, head h), from q, k, v [B, L, H*dh],
 // the pad mask, the seed, dO and the forward's softmax statistics (m, l)
@@ -79,6 +92,7 @@ struct Args {
   T* dk;
   T* dv;
   int L, H, lk_pad;
+  int row_stride, hb, group_stride;  // the packed layout (bf16 only)
   float scale;          // 1 / sqrt(dh)
   uint32_t seed, threshold;
   float keep_scale;     // 1 / (1 - rate)
@@ -559,16 +573,33 @@ __device__ __forceinline__ void frag_times_tile(float (&out)[DH / 8][4],
   }
 }
 
-// Store a 16 x DH fp32 fragment (times `scale`) as bf16 rows r0, r0 + 8 of
-// a [B, L, D] tensor (rows >= L skipped).
+// Where one (b, h) head's rows start: q, k, v (and dq, dk, dv), with their
+// row stride, and dO, whose row stride is D.
+template <int DH, bool PACKED>
+struct HeadRows {
+  size_t in, dout;
+  int stride;
+  __device__ __forceinline__ HeadRows(const Args<bf16>& a, int b, int h) {
+    const int D = a.H * DH;
+    stride = PACKED ? a.row_stride : D;
+    const size_t col = PACKED ? (size_t)(h / a.hb) * a.group_stride +
+                                    (size_t)(h % a.hb) * DH
+                              : (size_t)h * DH;
+    in = (size_t)b * a.L * stride + col;
+    dout = (size_t)b * a.L * D + (size_t)h * DH;
+  }
+};
+
+// Store a 16 x DH fp32 fragment (times `scale`) as bf16 rows r0, r0 + 8,
+// `stride` elements apart (rows >= L skipped).
 template <int DH>
 __device__ __forceinline__ void store_rows(bf16* dst,
                                            const float (&o)[DH / 8][4],
-                                           int r0, int L, int D,
+                                           int r0, int L, int stride,
                                            float scale) {
   const int qd = threadIdx.x % 4;
-  bf16* row0 = dst + (size_t)r0 * D + 2 * qd;
-  bf16* row1 = row0 + (size_t)8 * D;
+  bf16* row0 = dst + (size_t)r0 * stride + 2 * qd;
+  bf16* row1 = row0 + (size_t)8 * stride;
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
     if (r0 < L)
@@ -585,7 +616,7 @@ __device__ __forceinline__ void store_rows(bf16* dst,
 // p*keep and ds come out as the A operands of dV += (p*keep)^T dO and
 // dK += ds^T Q with no transpose.  The q and dO tiles stream through two
 // cp.async stages with their rows' (m, 1/l, delta).
-template <int DH>
+template <int DH, bool PACKED>
 __global__ void __launch_bounds__(MTHREADS)
 attention_bwd_dkdv_bf16(const Args<bf16> a) {
   using Lay = MmaLayout<DH>;
@@ -603,7 +634,7 @@ attention_bwd_dkdv_bf16(const Args<bf16> a) {
   const int b = blockIdx.z;
   const int D = a.H * DH;
   const uint32_t bh = (uint32_t)b * (uint32_t)a.H + (uint32_t)h;
-  const size_t base = (size_t)b * L * D + (size_t)h * DH;
+  const HeadRows<DH, PACKED> rows(a, b, h);
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int qd = lane % 4;
@@ -618,8 +649,8 @@ attention_bwd_dkdv_bf16(const Args<bf16> a) {
   auto load_q = [&](int qt) {
     const int s = qt & 1;
     bf16* qs = stages + s * 2 * Lay::TILE;
-    cp_tile<DH>(qs, a.q + base, qt * MT, L, D);
-    cp_tile<DH>(qs + Lay::TILE, a.dout + base, qt * MT, L, D);
+    cp_tile<DH>(qs, a.q + rows.in, qt * MT, L, rows.stride);
+    cp_tile<DH>(qs + Lay::TILE, a.dout + rows.dout, qt * MT, L, D);
     float* v = vecs + s * 3 * MT;
     for (int i = threadIdx.x; i < MT; i += MTHREADS) {
       const int q = qt * MT + i;
@@ -634,8 +665,8 @@ attention_bwd_dkdv_bf16(const Args<bf16> a) {
     cp_async_commit();
   };
 
-  cp_tile<DH>(ks, a.k + base, k0, L, D);
-  cp_tile<DH>(vs, a.v + base, k0, L, D);
+  cp_tile<DH>(ks, a.k + rows.in, k0, L, rows.stride);
+  cp_tile<DH>(vs, a.v + rows.in, k0, L, rows.stride);
   load_q(0);  // one group: k, v and the first q/dO tile
 
   uint32_t kf[DH / 16][4], vf[DH / 16][4];
@@ -687,9 +718,8 @@ attention_bwd_dkdv_bf16(const Args<bf16> a) {
     frag_times_tile<DH>(dv, s, dos);  // dV += (p*keep)^T dO
     frag_times_tile<DH>(dk, dp, qs);  // dK += ds^T q
   }
-  const size_t out = (size_t)b * L * D + (size_t)h * DH;
-  store_rows<DH>(a.dk + out, dk, key0, L, D, 1.0f);
-  store_rows<DH>(a.dv + out, dv, key0, L, D, a.keep_scale);
+  store_rows<DH>(a.dk + rows.in, dk, key0, L, rows.stride, 1.0f);
+  store_rows<DH>(a.dv + rows.in, dv, key0, L, rows.stride, a.keep_scale);
 }
 
 // dQ (and delta): one block of 4 warps per (64 q rows, head, batch row);
@@ -697,7 +727,7 @@ attention_bwd_dkdv_bf16(const Args<bf16> a) {
 // dP = dO V^T as the forward does.  It walks the keys twice through two
 // cp.async stages: first for delta = rowsum(dp * p) (written out for the
 // dkdv pass), then for ds and dQ += ds K.
-template <int DH>
+template <int DH, bool PACKED>
 __global__ void __launch_bounds__(MTHREADS)
 attention_bwd_dq_bf16(const Args<bf16> a) {
   using Lay = MmaLayout<DH>;
@@ -715,7 +745,7 @@ attention_bwd_dq_bf16(const Args<bf16> a) {
   const int b = blockIdx.z;
   const int D = a.H * DH;
   const uint32_t bh = (uint32_t)b * (uint32_t)a.H + (uint32_t)h;
-  const size_t base = (size_t)b * L * D + (size_t)h * DH;
+  const HeadRows<DH, PACKED> rows(a, b, h);
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int qd = lane % 4;
@@ -740,15 +770,15 @@ attention_bwd_dq_bf16(const Args<bf16> a) {
     const int s = t & 1;
     const int kt = t % nk;
     bf16* ks = stages + s * 2 * Lay::TILE;
-    cp_tile<DH>(ks, a.k + base, kt * MT, L, D);
-    cp_tile<DH>(ks + Lay::TILE, a.v + base, kt * MT, L, D);
+    cp_tile<DH>(ks, a.k + rows.in, kt * MT, L, rows.stride);
+    cp_tile<DH>(ks + Lay::TILE, a.v + rows.in, kt * MT, L, rows.stride);
     for (int i = threadIdx.x; i < MT; i += MTHREADS)
       biases[s * MT + i] = key_bias(pad_b, kt * MT + i, L);
     cp_async_commit();
   };
 
-  cp_tile<DH>(qs, a.q + base, q0, L, D);
-  cp_tile<DH>(dos, a.dout + base, q0, L, D);
+  cp_tile<DH>(qs, a.q + rows.in, q0, L, rows.stride);
+  cp_tile<DH>(dos, a.dout + rows.dout, q0, L, D);
   load_kv(0);  // one group: q, dO and the first k/v tile
 
   uint32_t qf[DH / 16][4], dof[DH / 16][4];
@@ -808,7 +838,7 @@ attention_bwd_dq_bf16(const Args<bf16> a) {
     }
     if (t >= nk) frag_times_tile<DH>(dq, dp, ks);  // dQ += ds k
   }
-  store_rows<DH>(a.dq + base, dq, row0, L, D, 1.0f);
+  store_rows<DH>(a.dq + rows.in, dq, row0, L, rows.stride, 1.0f);
 }
 
 template <int DH, int BT>
@@ -831,23 +861,25 @@ cudaError_t launch_fp32(const Args<float>& a, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool PACKED>
 cudaError_t launch_bf16(const Args<bf16>& a, int batch, cudaStream_t stream) {
   using Lay = MmaLayout<DH>;
   const dim3 grid((a.L + MT - 1) / MT, a.H, batch);
   // dq first: it writes delta, which dkdv reads
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dq_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Lay::bytes);
+      attention_bwd_dq_bf16<DH, PACKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lay::bytes);
   if (err != cudaSuccess) return err;
-  attention_bwd_dq_bf16<DH><<<grid, MTHREADS, Lay::bytes, stream>>>(a);
+  attention_bwd_dq_bf16<DH, PACKED><<<grid, MTHREADS, Lay::bytes, stream>>>(
+      a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attention_bwd_dkdv_bf16<DH>,
+  err = cudaFuncSetAttribute(attention_bwd_dkdv_bf16<DH, PACKED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)Lay::bytes);
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdv_bf16<DH><<<grid, MTHREADS, Lay::bytes, stream>>>(a);
+  attention_bwd_dkdv_bf16<DH, PACKED>
+      <<<grid, MTHREADS, Lay::bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -872,6 +904,10 @@ Args<T> make_args(const void* q, const void* k, const void* v,
   a.L = L;
   a.H = H;
   a.lk_pad = lk_pad;
+  // the split layout; the packed entry point sets its own
+  a.row_stride = 0;
+  a.hb = H;
+  a.group_stride = 0;
   a.scale = scale;
   a.seed = seed;
   a.threshold = threshold;
@@ -897,8 +933,8 @@ extern "C" int mmoe_flash_attention_bwd(
                                          dq, dk, dv, L, n_heads, lk_pad,
                                          scale, seed, threshold, keep_scale,
                                          dropout);
-    if (head_dim == 64) return launch_bf16<64>(a, batch, s);
-    if (head_dim == 128) return launch_bf16<128>(a, batch, s);
+    if (head_dim == 64) return launch_bf16<64, false>(a, batch, s);
+    if (head_dim == 128) return launch_bf16<128, false>(a, batch, s);
   } else if (dtype == 0) {
     const Args<float> a = make_args<float>(q, k, v, pad, dout, stats, delta,
                                            dq, dk, dv, L, n_heads, lk_pad,
@@ -908,5 +944,31 @@ extern "C" int mmoe_flash_attention_bwd(
     // dh 128 takes 32-row tiles to stay inside 227 KB of shared memory
     if (head_dim == 128) return launch_fp32<128, 32>(a, batch, s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The packed backward, bf16 only: qkv and dqkv [B, L, 3D] in the
+// group-interleaved layout (hb heads a group), dout [B, L, n_heads*head_dim]
+// head-major; pad [B, L] may be null; stats [B, n_heads, L] float2 from the
+// forward; delta [B, n_heads, L] fp32 scratch.
+extern "C" int mmoe_flash_attention_bwd_packed(
+    const void* qkv, const void* pad, const void* dout, const void* stats,
+    void* delta, void* dqkv, int dtype, int batch, int L, int n_heads, int hb,
+    int head_dim, int lk_pad, float scale, unsigned int seed,
+    unsigned int threshold, float keep_scale, int dropout, void* stream) {
+  if (dtype != 1 || hb <= 0 || n_heads % hb) return (int)cudaErrorInvalidValue;
+  const size_t w = (size_t)hb * head_dim;
+  const bf16* in = static_cast<const bf16*>(qkv);
+  bf16* out = static_cast<bf16*>(dqkv);
+  Args<bf16> a = make_args<bf16>(in, in + w, in + 2 * w, pad, dout, stats,
+                                 delta, out, out + w, out + 2 * w, L, n_heads,
+                                 lk_pad, scale, seed, threshold, keep_scale,
+                                 dropout);
+  a.row_stride = 3 * n_heads * head_dim;
+  a.hb = hb;
+  a.group_stride = (int)(3 * w);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch_bf16<64, true>(a, batch, s);
+  if (head_dim == 128) return launch_bf16<128, true>(a, batch, s);
   return (int)cudaErrorInvalidValue;
 }

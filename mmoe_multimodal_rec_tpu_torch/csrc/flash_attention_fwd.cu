@@ -218,12 +218,15 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int row0,
   }
 }
 
-// SPLIT: q/k/v of their own [B, L, D] (head h at column h*DH), and the
-// softmax statistics stored when asked; else the packed layout, which never
-// stores them (serving has no backward).  Two instantiations, so a profile
-// tells #1 and #2 apart, and the packed one keeps its lower register count.
-// At dh 64, at most 128 registers a thread: 4 blocks (16 warps) per SM.
-template <int DH, bool SPLIT>
+// SPLIT: q/k/v of their own [B, L, D] (head h at column h*DH); else the
+// packed layout.  STATS: the softmax statistics are stored for the
+// backward.  Three instantiations: split with statistics (#2), packed
+// without (#1 on the serving path, which has no backward: the store's
+// registers cost it 15%), and packed with (#1 where qkv needs a gradient,
+// HoME's fine-tuned ViT layers), so a profile tells them apart and serving
+// keeps its lower register count.  At dh 64, at most 128 registers a
+// thread: 4 blocks (16 warps) per SM.
+template <int DH, bool SPLIT, bool STATS>
 __global__ void __launch_bounds__(THREADS, DH == 64 ? 4 : 1)
 attention_fwd_bf16(const Args<bf16> a) {
   using Lay = MmaLayout<DH>;
@@ -395,7 +398,7 @@ attention_fwd_bf16(const Args<bf16> a) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  if (SPLIT && a.stats && qd == 0) {
+  if (STATS && a.stats && qd == 0) {
     float2* st = a.stats + (size_t)bh * L;
     if (row0 < L) st[row0] = make_float2(m[0], l[0]);
     if (row1 < L) st[row1] = make_float2(m[1], l[1]);
@@ -596,15 +599,23 @@ extern "C" int mmoe_flash_attention_fwd(
             batch, s)
   const bool split = group_stride == 0 && hb == n_heads;
   if (dtype == 1 && head_dim == 64)
-    return split ? MMOE_LAUNCH(bf16, 64, (attention_fwd_bf16<64, true>),
+    return split ? MMOE_LAUNCH(bf16, 64, (attention_fwd_bf16<64, true, true>),
                                MmaLayout)
-                 : MMOE_LAUNCH(bf16, 64, (attention_fwd_bf16<64, false>),
-                               MmaLayout);
+           : stats
+               ? MMOE_LAUNCH(bf16, 64, (attention_fwd_bf16<64, false, true>),
+                             MmaLayout)
+               : MMOE_LAUNCH(bf16, 64, (attention_fwd_bf16<64, false, false>),
+                             MmaLayout);
   if (dtype == 1 && head_dim == 128)
-    return split ? MMOE_LAUNCH(bf16, 128, (attention_fwd_bf16<128, true>),
-                               MmaLayout)
-                 : MMOE_LAUNCH(bf16, 128, (attention_fwd_bf16<128, false>),
-                               MmaLayout);
+    return split
+               ? MMOE_LAUNCH(bf16, 128, (attention_fwd_bf16<128, true, true>),
+                             MmaLayout)
+           : stats
+               ? MMOE_LAUNCH(bf16, 128,
+                             (attention_fwd_bf16<128, false, true>), MmaLayout)
+               : MMOE_LAUNCH(bf16, 128,
+                             (attention_fwd_bf16<128, false, false>),
+                             MmaLayout);
   if (dtype == 0 && head_dim == 64)
     return MMOE_LAUNCH(float, 64, attention_fwd_fp32<64>, Fp32Layout);
   if (dtype == 0 && head_dim == 128)

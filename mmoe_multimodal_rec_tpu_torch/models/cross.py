@@ -1,12 +1,13 @@
-"""Cross-interaction experts (baseline).
+"""Cross-interaction experts.
 
 Port of mmoe_multimodal_rec_tpu/models/cross.py:
 - RobustTextCrossExpert: per-side pre-norm self-attention over sentence
   vectors, user->item cross attention, scalar-gated residual blend,
-  attention pooling, LN + residual MLP head (ref model.py:386-451).
+  attention pooling, and (baseline only) an LN + residual MLP head
+  (ref model.py:386-451 / model_HoME.py:401-466).
 - EnhancedCrossFuse: two vectors as a length-2 sequence through pre-norm
-  layers, gated blend, residual projection, final LN/Linear/GELU
-  (ref model.py:454-507).
+  layers, gated blend, residual projection, and (baseline only) a final
+  LN/Linear/GELU (ref model.py:454-507 / model_HoME.py:469-522).
 Their attention rows are short (64 sentences, 2 tokens), so it stays plain,
 with its dropout on the attention counter hash.  Every dropout rate is the
 model's `dropout`.
@@ -23,9 +24,14 @@ from .layers import (Attention, AttnPool1D, Dense, LayerNorm, Mlp,
 
 
 class RobustTextCrossExpert(nn.Module):
+    """`final_mlp` (baseline, ref model.py:450-451): LN + residual MLP on the
+    pooled vector; HoME returns the raw pooled vector and guards the
+    all-masked user row (`pool_nan_guard`, model_HoME.py:466)."""
+
     def __init__(self, d: int, n_layers: int = 2, n_heads: int = 8,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, final_mlp: bool = True,
+                 pool_nan_guard: bool = False):
         super().__init__()
         self.n_layers = n_layers
         self.dtype = dtype
@@ -37,9 +43,11 @@ class RobustTextCrossExpert(nn.Module):
         self.cross_attn = Attention(d, n_heads, use_flash, dtype,
                                     dropout=dropout)
         self.gate = nn.Parameter(torch.empty(1))
-        self.pool = AttnPool1D(d, dtype, dropout)
-        self.norm = LayerNorm(d, dtype=dtype)
-        self.mlp = Mlp(d, 4 * d, d, gelu_exact, dtype, dropout, dropout)
+        self.pool = AttnPool1D(d, dtype, dropout, pool_nan_guard)
+        self.final_mlp = final_mlp
+        if final_mlp:
+            self.norm = LayerNorm(d, dtype=dtype)
+            self.mlp = Mlp(d, 4 * d, d, gelu_exact, dtype, dropout, dropout)
 
     def init_params(self, generator):
         with torch.no_grad():
@@ -61,13 +69,19 @@ class RobustTextCrossExpert(nn.Module):
         fused = alpha * user_vecs + (1.0 - alpha) * cross_out.to(
             user_vecs.dtype)
         pooled = self.pool(fused, user_mask, **kw)
+        if not self.final_mlp:
+            return pooled
         normed = self.norm(pooled).to(self.dtype)
         return normed + self.mlp(normed, deterministic, rng)
 
 
 class EnhancedCrossFuse(nn.Module):
+    """`final_proj` (baseline, ref model.py:507): LN/Linear/GELU/dropout on
+    the fused + residual sum; HoME returns the sum (model_HoME.py:522)."""
+
     def __init__(self, d: int, depth: int = 2, n_heads: int = 8,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.1):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.1,
+                 final_proj: bool = True):
         super().__init__()
         self.depth = depth
         self.dtype = dtype
@@ -80,8 +94,10 @@ class EnhancedCrossFuse(nn.Module):
                                                        dropout=dropout))
         self.gate_fc1 = Dense(2 * d, d // 2, dtype)
         self.gate_fc2 = Dense(d // 2, 1, dtype, bias_init=0.5)
-        self.proj_norm = LayerNorm(d, dtype=dtype)
-        self.proj_fc = Dense(d, d, dtype)
+        self.final_proj = final_proj
+        if final_proj:
+            self.proj_norm = LayerNorm(d, dtype=dtype)
+            self.proj_fc = Dense(d, d, dtype)
 
     def forward(self, v_cls: torch.Tensor, t_cls: torch.Tensor, *,
                 deterministic: bool = True,
@@ -98,6 +114,8 @@ class EnhancedCrossFuse(nn.Module):
         g = torch.sigmoid(self.gate_fc2(gelu_exact(self.gate_fc1(
             torch.cat([v_fused, t_fused], dim=-1)))))
         fused = g * v_fused + (1.0 - g) * t_fused
+        if not self.final_proj:
+            return fused + identity
         out = self.proj_norm(fused + identity)
         return dropout(gelu_exact(self.proj_fc(out.to(self.dtype))),
                        self.dropout, deterministic, rng)

@@ -1,7 +1,7 @@
-"""Baseline image expert over native patch rows.
+"""Image experts over native patch rows.
 
-Port of mmoe_multimodal_rec_tpu/models/image_expert.py (ItemImageExpert;
-the HoME ImageExpertWithProjection is a later slice).  ImageNet
+Port of mmoe_multimodal_rec_tpu/models/image_expert.py: ItemImageExpert
+(baseline) and ImageExpertWithProjection (HoME).  ImageNet
 normalization runs on the device over the uint8 (C, ph, pw) rows; samples
 with has_image = 0 enter the ViT as exact zeros.
 """
@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..config import ImageEncoderConfig
-from .layers import LayerNorm, dropout
+from .layers import LayerNorm, Mlp, dropout, gelu_exact
 from .vit import ViTEncoder
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -50,3 +50,23 @@ class ItemImageExpert(nn.Module):
         vec = tokens.mean(1) if self.pool_type == "mean" else tokens[:, 0]
         return dropout(self.norm(vec).to(self.dtype), self.dropout,
                        deterministic, rng)
+
+
+class ImageExpertWithProjection(nn.Module):
+    """HoME: the ViT's CLS vector and a trainable projection head
+    768 -> 1536 -> GELU -> 768 that feeds only the contrastive losses
+    (ref model_HoME.py:373-399).  Returns (img_vec, projected)."""
+
+    def __init__(self, cfg: ImageEncoderConfig,
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
+                 remat: bool = False):
+        super().__init__()
+        d = cfg.hidden_size
+        self.backbone = ViTEncoder(cfg, dtype, use_flash, remat)
+        self.projection_head = Mlp(d, 2 * d, d, gelu_exact, dtype)
+
+    def forward(self, patches: torch.Tensor, *, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
+        img_vec = self.backbone(patches, deterministic=deterministic,
+                                rng=rng)[:, 0]
+        return img_vec, self.projection_head(img_vec, deterministic, rng)

@@ -30,10 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import (_M32, KERNEL_HEAD_DIMS, _head_group,
-                                   _threshold, dropout_keep_mask,
-                                   flash_attention, flash_attention_packed,
-                                   pack_qkv_weights)
+from ..ops.flash_attention import (KERNEL_HEAD_DIMS, _head_group,
+                                   dropout_keep_mask, flash_attention,
+                                   flash_attention_packed, pack_qkv_weights)
+from ..ops.lora_dropout import (hash_keep_mask, lora_dropout_matmul,
+                                lora_fused_ok)
 
 NEG_INF = -1e9  # finite mask value: keeps bf16 softmax NaN-free on all-pad rows
 
@@ -64,28 +65,6 @@ def draw_seed(rng: Optional[torch.Generator]) -> int:
         raise ValueError("a training forward (deterministic=False) needs "
                          "rng, the micro-batch's torch.Generator")
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=rng))
-
-
-def _i32(u: int) -> int:
-    """A uint32 constant as the int32 with the same bits."""
-    return u - (1 << 32) if u >= (1 << 31) else u
-
-
-def hash_keep_mask(shape, seed: int, rate: float, device) -> torch.Tensor:
-    """HashDropout's keep mask: the murmur3-finalizer hash of the flat
-    index (row*D + col of reshape(-1, D)), keep = bits >= uint32(rate *
-    (2^32 - 1)).  Computed in place in int32, whose products wrap mod 2^32
-    as the uint32 ones do; shifts are masked to be logical and the final
-    compare is made unsigned by flipping the sign bit."""
-    x = torch.arange(math.prod(shape), dtype=torch.int32, device=device)
-    x.mul_(_i32(2654435761)).add_(_i32(seed & _M32))
-    x.bitwise_xor_((x >> 16) & 0xFFFF)
-    x.mul_(_i32(0x85EBCA6B))
-    x.bitwise_xor_((x >> 13) & 0x7FFFF)
-    x.mul_(_i32(0xC2B2AE35))
-    x.bitwise_xor_((x >> 16) & 0xFFFF)
-    x.bitwise_xor_(_i32(0x80000000))
-    return (x >= _i32(_threshold(rate) ^ 0x80000000)).reshape(shape)
 
 
 def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
@@ -141,11 +120,13 @@ class LoRADense(nn.Module):
     ProjParams lays them out: base/{weight, bias}, lora_a [in, r],
     lora_b [r, out].
 
-    The LoRA input dropout is HashDropout followed by the thin matmul (the
-    JAX package's `lora_fused_dropout=false` branch, whose mask equals the
-    fused Pallas op's interpret-mode mask bit for bit).  With
-    `fused_dropout` set, a CPU tensor takes that same branch and a CUDA
-    tensor raises: the fused kernel is not ported yet."""
+    The LoRA input dropout, as the JAX `drop_matmul`: with `fused_dropout`
+    set and a shape `lora_fused_ok` admits, `lora_dropout_matmul` (the
+    fused kernels on a CUDA tensor, their plain versions on a CPU one);
+    otherwise HashDropout followed by the thin matmul.  Both branches draw
+    one seed and key the same mask on it; they differ only in rounding
+    (the fused one multiplies by 1/(1-rate) rounded to the compute dtype
+    and rounds dA to it, as the JAX kernels do)."""
 
     def __init__(self, in_features: int, out_features: int, rank: int,
                  alpha: float, dtype: torch.dtype = torch.float32,
@@ -169,13 +150,14 @@ class LoRADense(nn.Module):
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         y = self.base(x)
         h = x.to(self.dtype)
+        a = self.lora_a.to(self.dtype)
         if (self.fused_dropout and not deterministic and self.dropout > 0.0
-                and h.device.type == "cuda"):
-            raise NotImplementedError(
-                "lora_dropout kernel not yet ported; pass "
-                "--model.text.lora_fused_dropout=false")
-        h = dropout(h, self.dropout, deterministic, rng)
-        t = h @ self.lora_a.to(self.dtype)
+                and lora_fused_ok(h, a)):
+            t = lora_dropout_matmul(h.reshape(-1, h.shape[-1]).contiguous(),
+                                    a, draw_seed(rng), self.dropout)
+            t = t.reshape(h.shape[:-1] + (a.shape[-1],))
+        else:
+            t = dropout(h, self.dropout, deterministic, rng) @ a
         return y + self.scale * (t @ self.lora_b.to(self.dtype))
 
 
@@ -376,14 +358,17 @@ class PreNormBlock(nn.Module):
 
 class AttnPool1D(nn.Module):
     """Learnable-query attention pooling: scores = q.x / sqrt(d), -1e9 at
-    padded rows, fp32 softmax, dropout on the weights, weighted sum."""
+    padded rows, fp32 softmax, dropout on the weights, weighted sum.
+    `nan_guard` adds HoME's all-masked-row fix (ref model_HoME.py:210-211):
+    a row whose every position is padded pools to zeros."""
 
     def __init__(self, d: int, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, nan_guard: bool = False):
         super().__init__()
         self.query = nn.Parameter(torch.empty(d))
         self.dtype = dtype
         self.dropout = dropout
+        self.nan_guard = nan_guard
 
     def init_params(self, generator):
         with torch.no_grad():
@@ -397,6 +382,53 @@ class AttnPool1D(nn.Module):
         scores = torch.einsum("d,bld->bl", self.query.to(self.dtype),
                               x.to(self.dtype)) / math.sqrt(d)
         scores = scores.masked_fill(pad_mask, NEG_INF)
-        w = dropout(torch.softmax(scores.float(), dim=-1), self.dropout,
-                    deterministic, rng)
+        w = torch.softmax(scores.float(), dim=-1)
+        if self.nan_guard:
+            w = w.masked_fill(pad_mask.all(-1, keepdim=True), 0.0)
+        w = dropout(w, self.dropout, deterministic, rng)
         return torch.einsum("bl,bld->bd", w.to(self.dtype), x)
+
+
+class BatchNorm1D(nn.Module):
+    """torch BatchNorm1d semantics over the flattened rows of x [..., D],
+    as models/layers.BatchNorm1D: fp32 statistics; with
+    `use_running_average` the running mean/var normalise, else the batch's
+    (biased variance) do and the running ones move by `momentum` towards
+    the batch mean and the UNBIASED batch variance, in place.  The running
+    statistics are buffers (`mean`, `var`: the JAX `batch_stats`
+    collection); `weight`/`bias` are the JAX `scale`/`bias`."""
+
+    def __init__(self, features: int, momentum: float = 0.1,
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.momentum = momentum
+        self.eps = eps
+        self.dtype = dtype
+
+    def init_params(self, generator):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor,
+                use_running_average: bool = True) -> torch.Tensor:
+        x32 = x.float()
+        if use_running_average:
+            mean, var = self.mean, self.var
+        else:
+            rows = x32.reshape(-1, x32.shape[-1])
+            n = rows.shape[0]
+            mean = rows.mean(0)
+            var = rows.var(0, unbiased=False)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.mul_(1 - m).add_(m * mean)
+                self.var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight.float()
+        return (y + self.bias.float()).to(self.dtype)

@@ -1,7 +1,7 @@
 """TextExpert: BGE encoder over packed chunks + sentence gather + doc pooling.
 
-Port of mmoe_multimodal_rec_tpu/models/text_expert.py (TextExpert; the
-shared-base DualTextExpert is a later slice).  The packer's static routing
+Port of mmoe_multimodal_rec_tpu/models/text_expert.py (TextExpert, baseline
+and HoME; the shared-base DualTextExpert is a later slice).  The packer's static routing
 tensors `sent_chunk`/`sent_tok` [B, S] (global chunk row / token position,
 -1 = padded sentence) turn the regroup into one index_select.
 """
@@ -39,16 +39,20 @@ def gather_sentences(h: torch.Tensor, sent_chunk: torch.Tensor,
 
 
 class TextExpert(nn.Module):
-    """Baseline text expert: encoder -> gather -> LN + dropout on the
-    sentence and doc vectors (the same norm for both, two dropout draws,
-    ref model.py:335-336)."""
+    """Text expert: encoder -> gather -> (baseline, `final_norm`) LN +
+    dropout on the sentence and doc vectors (the same norm for both, two
+    dropout draws, ref model.py:335-336); HoME has no final norm
+    (model_HoME.py:366-367) and returns the gathered vectors, the doc
+    vectors cast to the compute dtype."""
 
     def __init__(self, cfg: TextEncoderConfig,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
-                 dropout: float = 0.1, remat: bool = False):
+                 dropout: float = 0.1, remat: bool = False,
+                 final_norm: bool = True):
         super().__init__()
         self.encoder = BertEncoder(cfg, dtype, use_flash, remat)
-        self.norm = LayerNorm(cfg.hidden_size, dtype=dtype)
+        self.norm = LayerNorm(cfg.hidden_size, dtype=dtype) if final_norm \
+            else None
         self.dtype = dtype
         self.dropout = dropout
 
@@ -58,8 +62,10 @@ class TextExpert(nn.Module):
         h = self.encoder(tokens, deterministic=deterministic, rng=rng)
         sent_vecs, sent_mask, doc_vecs = gather_sentences(h, sent_chunk,
                                                           sent_tok)
-        sent_vecs = dropout(self.norm(sent_vecs).to(self.dtype), self.dropout,
-                            deterministic, rng)
-        doc_vecs = dropout(self.norm(doc_vecs.to(self.dtype)).to(self.dtype),
-                           self.dropout, deterministic, rng)
+        doc_vecs = doc_vecs.to(self.dtype)
+        if self.norm is not None:
+            sent_vecs = dropout(self.norm(sent_vecs).to(self.dtype),
+                                self.dropout, deterministic, rng)
+            doc_vecs = dropout(self.norm(doc_vecs).to(self.dtype),
+                               self.dropout, deterministic, rng)
         return sent_vecs, sent_mask, doc_vecs

@@ -1,10 +1,12 @@
 """Self-attention kernels' wrappers and their plain PyTorch versions.
 
 Port of mmoe_multimodal_rec_tpu/ops/flash_attention.py:
-- `flash_attention_packed` (forward only): the input is the projection
-  output qkv [B, L, 3D] in the GROUP-INTERLEAVED column order
-  `pack_qkv_weights` builds — for each head group g of hb heads,
-  [q_g | k_g | v_g] with w = hb*dh columns each;
+- `flash_attention_packed` (forward and backward, a torch.autograd.Function):
+  the input is the projection output qkv [B, L, 3D] in the
+  GROUP-INTERLEAVED column order `pack_qkv_weights` builds — for each head
+  group g of hb heads, [q_g | k_g | v_g] with w = hb*dh columns each — and
+  its gradient comes back in the same layout; serving's ViT and merged-LoRA
+  text, and HoME's fine-tuned ViT layers;
 - `flash_attention` (forward and backward, a torch.autograd.Function): q, k,
   v [B, L, D] each, as the separate q/k/v projections produce them; the
   training path's text self-attention, with in-kernel dropout.
@@ -13,12 +15,12 @@ Outputs are [B, L, D] in head-major order, ready for the out projection.
 
 Every wrapper dispatches on the tensor's device, never on what the machine
 has: a CPU tensor takes the plain PyTorch version
-(`flash_attention_packed_reference`, `flash_attention_reference`,
-`flash_attention_bwd_reference`), a CUDA tensor launches the hand-written
-Hopper kernel (csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu,
-built by ops/cuda_lib.py at first use) or raises.  `<wrapper>.launches`
-counts the wrapper's kernel launches (`flash_attention_bwd`: one per call,
-which runs its dq and dk/dv kernels).
+(`flash_attention_packed_reference`, `flash_attention_packed_bwd_reference`,
+`flash_attention_reference`, `flash_attention_bwd_reference`), a CUDA
+tensor launches the hand-written Hopper kernel (csrc/flash_attention_fwd.cu,
+csrc/flash_attention_bwd.cu, built by ops/cuda_lib.py at first use) or
+raises.  `<wrapper>.launches` counts the wrapper's kernel launches (each
+backward wrapper: one per call, which runs its dq and dk/dv kernels).
 
 Dropout uses the JAX interpret-mode keep mask: a murmur3-finalizer hash
 over the counter ((b*H + h)*Lq + q)*Lk_pad + k (Lk_pad = Lk rounded up to
@@ -178,6 +180,32 @@ def flash_attention_reference(q, k, v, pad_mask=None,
     return torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, l, d).to(q.dtype)
 
 
+def _bwd_heads(qh, kh, vh, gh, pad_mask, seed: Optional[int],
+               dropout_rate: float, dt):
+    """The backward of one self-attention over head-split fp32 q, k, v, dO
+    [B, L, H, dh], written out as the JAX kernel's `_head_bwd`; (dq, dk, dv)
+    in fp32, rounded as the kernel rounds its bf16 operands (dt)."""
+    b, l, n_heads, dh = qh.shape
+    scores = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(dh)
+    if pad_mask is not None:
+        scores = scores.masked_fill(pad_mask.bool()[:, None, None, :], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    inv = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0.0 else 1.0
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, vh)
+    p_drop = p
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(seed or 0, b, n_heads, l, l, dropout_rate,
+                                 device=qh.device)
+        p_drop = torch.where(keep, p, 0.0)
+        dp = torch.where(keep, dp, 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop.to(dt).float(), gh) * inv
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = (ds * (inv / math.sqrt(dh))).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh)
+    return dq, dk, dv
+
+
 def flash_attention_bwd_reference(q, k, v, pad_mask, seed: Optional[int],
                                   dout, n_heads: int = 12,
                                   dropout_rate: float = 0.0):
@@ -189,25 +217,30 @@ def flash_attention_bwd_reference(q, k, v, pad_mask, seed: Optional[int],
     the input dtype."""
     _check_split(q, k, v, n_heads)
     b, l, d = q.shape
+    heads = (x.float().reshape(b, l, n_heads, d // n_heads)
+             for x in (q, k, v, dout))
+    grads = _bwd_heads(*heads, pad_mask, seed, dropout_rate, q.dtype)
+    return tuple(x.reshape(b, l, d).to(q.dtype) for x in grads)
+
+
+def flash_attention_packed_bwd_reference(qkv, pad_mask, seed: Optional[int],
+                                         dout, n_heads: int = 12, hb: int = 6,
+                                         dropout_rate: float = 0.0
+                                         ) -> torch.Tensor:
+    """Plain PyTorch version of `flash_attention_packed`'s backward (JAX
+    `_bwd_kernel_packed`, the same `_head_bwd` math as
+    `flash_attention_bwd_reference`): dqkv [B, L, 3D] in qkv's
+    group-interleaved layout and dtype, for dout [B, L, D] head-major."""
+    _check(qkv, n_heads, hb, dropout_rate)
+    b, l, d3 = qkv.shape
+    d = d3 // 3
     dh = d // n_heads
-    dt = q.dtype
-    qh, kh, vh, gh = (x.float().reshape(b, l, n_heads, dh)
-                      for x in (q, k, v, dout))
-    p = _probs(q, k, pad_mask, n_heads)
-    inv = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0.0 else 1.0
-    dp = torch.einsum("bqhd,bkhd->bhqk", gh, vh)
-    p_drop = p
-    if dropout_rate > 0.0:
-        keep = dropout_keep_mask(seed or 0, b, n_heads, l, l, dropout_rate,
-                                 device=q.device)
-        p_drop = torch.where(keep, p, 0.0)
-        dp = torch.where(keep, dp, 0.0)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop.to(dt).float(), gh) * inv
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    ds = (ds * (inv / math.sqrt(dh))).to(dt).float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh)
-    return tuple(x.reshape(b, l, d).to(dt) for x in (dq, dk, dv))
+    x = qkv.float().reshape(b, l, n_heads // hb, 3, hb, dh)
+    q, k, v = (x[:, :, :, i].reshape(b, l, n_heads, dh) for i in range(3))
+    gh = dout.float().reshape(b, l, n_heads, dh)
+    grads = _bwd_heads(q, k, v, gh, pad_mask, seed, dropout_rate, qkv.dtype)
+    return pack_qkv_weights(*(g.reshape(b, l, d) for g in grads), n_heads,
+                            hb).to(qkv.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +261,7 @@ def _bind(lib_name: str, fn_name: str, argtypes):
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _FWD_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _U, _U, _F, _I, _P]
 _BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _U, _U, _F, _I, _P]
+_PACKED_BWD_ARGTYPES = [_P] * 6 + [_I] * 7 + [_F, _U, _U, _F, _I, _P]
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -306,42 +340,137 @@ def _launch_fwd(q, k_ptr: int, v_ptr: int, pad, out, stats, n_heads: int,
 # Public API
 # ---------------------------------------------------------------------------
 
+def _packed_fwd_cuda(qkv, pad_mask, seed, n_heads: int, hb: int,
+                     rate: float, want_stats: bool):
+    _check_cuda("flash_attention_packed", qkv)
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // n_heads
+    _check_head_dim(dh)
+    if want_stats and qkv.dtype != torch.bfloat16:
+        raise TypeError("flash_attention_packed's backward kernel takes "
+                        f"bfloat16, got {qkv.dtype}")
+    pad = _pad_arg(pad_mask, b, l, qkv.device)
+    w = hb * dh * qkv.element_size()
+    out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
+    stats = (torch.empty((b, n_heads, l, 2), dtype=torch.float32,
+                         device=qkv.device) if want_stats else None)
+    # the packed counter strides over L itself (dropout needs L % 128 == 0)
+    _launch_fwd(qkv, qkv.data_ptr() + w, qkv.data_ptr() + 2 * w, pad, out,
+                stats, n_heads, hb, d3, 3 * hb * dh, l, seed, rate)
+    flash_attention_packed.launches += 1
+    flash_attention_packed.stats_launches += want_stats
+    return out, stats
+
+
+def flash_attention_packed_bwd(qkv, pad_mask, seed: Optional[int], dout,
+                               n_heads: int = 12, hb: int = 6,
+                               dropout_rate: float = 0.0,
+                               stats: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """dqkv [B, L, 3D] of `flash_attention_packed`, in qkv's packed layout,
+    for the cotangent dout [B, L, D].
+
+    CPU tensors: `flash_attention_packed_bwd_reference`.  CUDA tensors: the
+    Hopper kernel (bf16 only), which also needs the forward kernel's
+    softmax statistics `stats` [B, H, L, 2] (m, l)."""
+    _check(qkv, n_heads, hb, dropout_rate)
+    if qkv.device.type == "cpu":
+        return flash_attention_packed_bwd_reference(qkv, pad_mask, seed, dout,
+                                                    n_heads, hb, dropout_rate)
+    if stats is None:
+        raise ValueError("the CUDA backward needs the forward kernel's "
+                         "stats")
+    _check_cuda("flash_attention_packed_bwd", qkv)
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError("flash_attention_packed's backward kernel takes "
+                        f"bfloat16, got {qkv.dtype}")
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // n_heads
+    _check_head_dim(dh)
+    if (dout.shape != (b, l, d) or dout.dtype != qkv.dtype
+            or dout.device != qkv.device or not dout.is_contiguous()):
+        raise ValueError(f"dout must be a contiguous {qkv.dtype} [{b}, {l}, "
+                         f"{d}] on {qkv.device}")
+    if (stats.dtype != torch.float32 or not stats.is_contiguous()
+            or tuple(stats.shape) != (b, n_heads, l, 2)):
+        raise ValueError(f"stats must be a contiguous fp32 [{b}, {n_heads}, "
+                         f"{l}, 2]")
+    pad = _pad_arg(pad_mask, b, l, qkv.device)
+    delta = torch.empty((b, n_heads, l), dtype=torch.float32,
+                        device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    fn = _bind("flash_attention_bwd", "mmoe_flash_attention_bwd_packed",
+               _PACKED_BWD_ARGTYPES)
+    with torch.cuda.device(qkv.device):
+        err = fn(qkv.data_ptr(), None if pad is None else pad.data_ptr(),
+                 dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
+                 dqkv.data_ptr(), _DTYPE_CODES[qkv.dtype], b, l, n_heads, hb,
+                 dh, l, 1.0 / math.sqrt(dh),
+                 *_dropout_args(seed, dropout_rate), _stream(qkv.device))
+    if err:
+        raise RuntimeError(f"flash_attention_packed_bwd launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_packed_bwd.launches += 1
+    return dqkv
+
+
+flash_attention_packed_bwd.launches = 0
+
+
+class _FlashAttentionPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, pad_mask, seed, n_heads, hb, dropout_rate,
+                want_grad):
+        stats = None
+        if qkv.device.type == "cpu":
+            out = flash_attention_packed_reference(qkv, pad_mask, seed,
+                                                   n_heads, hb, dropout_rate)
+        else:
+            out, stats = _packed_fwd_cuda(qkv, pad_mask, seed, n_heads, hb,
+                                          dropout_rate, want_grad)
+        if want_grad:
+            ctx.save_for_backward(qkv, pad_mask, stats)
+        ctx.seed, ctx.n_heads, ctx.hb, ctx.rate = (seed, n_heads, hb,
+                                                   dropout_rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, pad_mask, stats = ctx.saved_tensors
+        dqkv = flash_attention_packed_bwd(qkv, pad_mask, ctx.seed,
+                                          dout.contiguous(), ctx.n_heads,
+                                          ctx.hb, ctx.rate, stats)
+        return dqkv, None, None, None, None, None, None
+
+
 def flash_attention_packed(qkv: torch.Tensor,
                            pad_mask: Optional[torch.Tensor] = None,
                            seed: Optional[int] = None, n_heads: int = 12,
                            hb: int = 6, dropout_rate: float = 0.0
                            ) -> torch.Tensor:
-    """Self-attention over a group-interleaved qkv [B, L, 3D] -> [B, L, D].
+    """Self-attention over a group-interleaved qkv [B, L, 3D] -> [B, L, D],
+    and its backward (dqkv in the same packed layout).
 
-    CPU tensor: the plain PyTorch version.  CUDA tensor: the Hopper kernel,
-    or an exception for what it does not take (dtype other than bf16/fp32,
-    a non-contiguous or misaligned tensor, a mask on another device, head
-    dim other than 64/128, a qkv that needs a gradient: the packed backward
-    is not ported)."""
+    CPU tensor: the plain PyTorch versions.  CUDA tensor: the Hopper
+    kernels, or an exception for what they do not take (dtype other than
+    bf16/fp32, a non-contiguous or misaligned tensor, a mask on another
+    device, head dim other than 64/128; a qkv that needs a gradient must be
+    bf16).  The forward kernel stores the softmax statistics for the
+    backward only when qkv needs a gradient: serving runs the instantiation
+    without that store (`flash_attention_packed.stats_launches` counts the
+    other)."""
     _check(qkv, n_heads, hb, dropout_rate)
-    if qkv.device.type == "cpu":
-        return flash_attention_packed_reference(qkv, pad_mask, seed, n_heads,
-                                                hb, dropout_rate)
-    _check_cuda("flash_attention_packed", qkv)
-    if qkv.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("flash_attention_packed has no backward "
-                                  "kernel yet")
-    b, l, d3 = qkv.shape
-    d = d3 // 3
-    dh = d // n_heads
-    _check_head_dim(dh)
-    pad = _pad_arg(pad_mask, b, l, qkv.device)
-    w = hb * dh * qkv.element_size()
-    out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
-    # the packed counter strides over L itself (dropout needs L % 128 == 0)
-    _launch_fwd(qkv, qkv.data_ptr() + w, qkv.data_ptr() + 2 * w, pad, out,
-                None, n_heads, hb, d3, 3 * hb * dh, l, seed,
-                float(dropout_rate))
-    flash_attention_packed.launches += 1
-    return out
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {qkv.device}")
+    want_grad = qkv.requires_grad and torch.is_grad_enabled()
+    return _FlashAttentionPacked.apply(qkv, pad_mask, seed, n_heads, hb,
+                                       float(dropout_rate), want_grad)
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.stats_launches = 0
 
 
 def _flash_fwd_cuda(q, k, v, pad_mask, seed, n_heads: int, rate: float,

@@ -2,8 +2,9 @@
 
 Port of mmoe_multimodal_rec_tpu/train/checkpoint.py (which writes orbax).
 The periodic payload `ckpt_<step>.pt` holds what changes during training:
-the trainable parameters, the optimizer and schedule state, the optimizer
-step count, and `extra`, the resume position {epoch, opt_step_in_epoch,
+the trainable parameters, the model's buffers (HoME's BatchNorm running
+statistics), the optimizer and schedule state, the optimizer step count,
+and `extra`, the resume position {epoch, opt_step_in_epoch,
 host_step}.  The frozen base weights (BERT x2 + ViT, most of the model)
 never change, so they are written once per run directory to
 `frozen_once.pt`, beside a fingerprint that guards against resuming on a

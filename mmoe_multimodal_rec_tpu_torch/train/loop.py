@@ -2,8 +2,9 @@
 drives the epoch loop with logging, checkpointing and resume.
 
 Port of mmoe_multimodal_rec_tpu/train/loop.py, on one device:
-- `Trainer` initialises the model from train.seed (or loads JAX params),
-  freezes what `label_param` freezes, and runs `train/step.py`'s step;
+- `Trainer` initialises the model, baseline or HoME, from train.seed (or
+  loads JAX params and batch_stats), freezes what `label_param` freezes,
+  and runs `train/step.py`'s step;
 - the dropout stream of micro-batch i of a step is a torch.Generator keyed
   on (train.seed + 1, host_step, i): a pure function of the step index, so
   resume needs no RNG state, only the counter.  `host_step` counts
@@ -78,9 +79,11 @@ def dropout_generator(seed: int, host_step: int, micro: int
 
 class Trainer:
     def __init__(self, cfg: Config, device="cuda",
-                 params: Optional[Mapping[str, np.ndarray]] = None):
+                 params: Optional[Mapping[str, np.ndarray]] = None,
+                 batch_stats: Optional[Mapping[str, np.ndarray]] = None):
         """params: the JAX param tree flattened with '/'-joined keys (numpy,
-        LoRA unmerged); None initialises from train.seed."""
+        LoRA unmerged), and batch_stats its HoME BatchNorm statistics
+        flattened the same way; None initialises from train.seed."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to train "
@@ -92,7 +95,8 @@ class Trainer:
             init_weights(self.model,
                          torch.Generator().manual_seed(cfg.train.seed))
         else:
-            load_jax_params(self.model, params, cfg.model, merge_lora=False)
+            load_jax_params(self.model, params, cfg.model, merge_lora=False,
+                            batch_stats=batch_stats)
         self.model.to(device=self.device,
                       dtype=DTYPES[cfg.model.param_dtype])
         self.trainable, self.frozen = split_trainable(self.model, variant)
@@ -129,16 +133,21 @@ class Trainer:
     def state_dict(self) -> Dict[str, Any]:
         return {"trainable": {k: p.detach().cpu()
                               for k, p in self.trainable.items()},
+                "batch_stats": {k: b.detach().cpu()
+                                for k, b in self.model.named_buffers()},
                 "optimizer": self.optimizer.state_dict(),
                 "scheduler": self.scheduler.state_dict()}
 
     def load_state_dict(self, payload: Mapping[str, Any],
                         frozen: Optional[Mapping[str, torch.Tensor]] = None
                         ) -> None:
-        """Strict: every trainable (and, when given, frozen) tensor must be
-        in the checkpoint with its shape."""
+        """Strict: every trainable tensor and BatchNorm statistic (and,
+        when given, frozen tensor) must be in the checkpoint with its
+        shape."""
+        buffers = dict(self.model.named_buffers())
         with torch.no_grad():
             for group, saved in ((self.trainable, payload["trainable"]),
+                                 (buffers, payload.get("batch_stats", {})),
                                  (self.frozen, frozen)):
                 if saved is None:
                     continue

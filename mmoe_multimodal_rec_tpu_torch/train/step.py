@@ -6,6 +6,10 @@ micro-batches; the semantics are the same:
 - each micro-batch's gradients are added only if its loss is finite (the
   test runs on the card, `torch.where`, no host sync), and the NaN ones
   are counted in `skipped_micro`;
+- the model's buffers (HoME's BatchNorm running statistics, which each
+  training forward moves in place and which carry from one micro-batch to
+  the next in order) keep a NaN micro-batch's move only if its loss is
+  finite, as JAX keeps its `batch_stats` (`torch.where`, no host sync);
 - the summed gradients are divided by `grad_accum` whatever was skipped
   (the reference divides every micro-loss by ACCUM, train.py:258);
 - `grad_norm` is the global norm before the clip;
@@ -35,6 +39,7 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     max_norm = cfg.train.optim.max_grad_norm
     params: List[torch.nn.Parameter] = [p for p in model.parameters()
                                         if p.requires_grad]
+    buffers: List[torch.Tensor] = list(model.buffers())
 
     def train_step(batch: Dict[str, torch.Tensor],
                    rngs: Sequence[torch.Generator]) -> Dict[str, float]:
@@ -48,12 +53,15 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
             micro = {k: v[i] for k, v in batch.items()}
             for p in params:
                 p.grad = None
+            before = [b.clone() for b in buffers]
             out = model(micro, deterministic=False, rng=rngs[i])
             parts = total_loss(out.logit_good, out.logit_best,
                                micro["label_good"], micro["label_best"],
                                loss_cfg, aux=out.aux, home=home)
             parts.total.backward()
             ok = torch.isfinite(parts.total.detach())
+            for b, old in zip(buffers, before):
+                b.copy_(torch.where(ok, b, old))
             for a, p in zip(acc, params):
                 if p.grad is not None:
                     a.add_(torch.where(ok, p.grad, 0.0))

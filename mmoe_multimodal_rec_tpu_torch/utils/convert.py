@@ -4,10 +4,12 @@ The port's module names follow the JAX tree, so a flat key maps by rule:
 `user_expert/encoder/layer_0/attention/query/kernel` [in, out] becomes
 `user_expert.encoder.layer_0.attention.query.weight` [out, in]; `scale` and
 `embedding` become `weight`; every other leaf keeps its name and layout.
+The JAX `batch_stats` collection (HoME's `<wrapper>/norm/{mean,var}`) maps
+the same way onto the BatchNorm buffers of the same names.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -36,10 +38,17 @@ def params_from_jax(flat: Mapping[str, np.ndarray], model_cfg,
 
 
 def load_jax_params(module: nn.Module, flat: Mapping[str, np.ndarray],
-                    model_cfg, merge_lora: bool = True) -> nn.Module:
-    """Strict load of JAX params into `module`: raises listing every key the
-    module lacks or the params do not use, and on any shape mismatch."""
+                    model_cfg, merge_lora: bool = True,
+                    batch_stats: Optional[Mapping[str, np.ndarray]] = None
+                    ) -> nn.Module:
+    """Strict load of JAX params, and of the flat '/'-keyed `batch_stats`
+    when the model has any, into `module`: raises listing every parameter
+    or buffer the module lacks or the JAX trees do not use, and on any
+    shape mismatch."""
     state = params_from_jax(flat, model_cfg, merge_lora)
+    for key, value in (batch_stats or {}).items():
+        state[key.replace("/", ".")] = torch.tensor(
+            np.asarray(value, np.float32))
     own = module.state_dict()
     missing = sorted(set(own) - set(state))
     unused = sorted(set(state) - set(own))

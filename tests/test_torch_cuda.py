@@ -193,7 +193,7 @@ def test_split_kernels_refuse_what_they_do_not_take():
                             None, 12)
     with pytest.raises(ValueError, match="needs the forward kernel"):
         tfa.flash_attention_bwd(q, q, q, None, None, q, 12)
-    with pytest.raises(NotImplementedError, match="no backward"):
+    with pytest.raises(TypeError, match="backward kernel takes bfloat16"):
         tfa.flash_attention_packed(
             torch.zeros(2, 128, 3 * 768, device="cuda", requires_grad=True),
             None, None, 12, 6)
@@ -213,19 +213,184 @@ def test_hash_dropout_mask_on_the_card_equals_the_cpu():
 
 
 @pytest.mark.cuda
-def test_fused_lora_dropout_refuses_on_the_card():
-    """lora_fused_dropout=true has no kernel yet: a training forward on the
-    card raises; the serving forward (no dropout) does not."""
+def test_fused_lora_dense_launches_the_kernels():
+    """lora_fused_dropout=true on the card: a training forward and backward
+    of LoRADense launches the forward, dA and dh kernels once each and
+    agrees with the same layer on the CPU (fp32, plain versions); the
+    serving forward (no dropout) launches none."""
     _need_card()
     from mmoe_multimodal_rec_tpu_torch.models import layers
-    lora = layers.LoRADense(32, 32, 2, 32.0, dropout=0.1,
-                            fused_dropout=True)
-    layers.init_weights(lora, torch.Generator().manual_seed(0))
-    lora.cuda()
-    x = torch.randn(4, 32, device="cuda")
-    lora(x)
-    with pytest.raises(NotImplementedError, match="lora_fused_dropout=false"):
-        lora(x, deterministic=False, rng=torch.Generator().manual_seed(1))
+    outs = []
+    for device in ("cuda", "cpu"):
+        lora = layers.LoRADense(128, 128, 8, 32.0, dropout=0.1,
+                                fused_dropout=True)
+        layers.init_weights(lora, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            lora.lora_b.normal_(0, 0.1, generator=torch.Generator()
+                                .manual_seed(1))
+        lora.to(device)
+        x = torch.randn(4, 96, 128, generator=torch.Generator()
+                        .manual_seed(2)).to(device).requires_grad_()
+        before = _lora_launches()
+        lora(x.detach())
+        assert _lora_launches() == before
+        y = lora(x, deterministic=False, rng=torch.Generator().manual_seed(3))
+        y.square().sum().backward()
+        want = (1, 1, 1) if device == "cuda" else (0, 0, 0)
+        assert tuple(n - b for n, b in zip(_lora_launches(), before)) == want
+        outs.append([t.detach().cpu() for t in (y, x.grad, lora.lora_a.grad,
+                                                lora.lora_b.grad)])
+    for got, want in zip(*outs):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+
+
+def _lora_launches():
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld
+    return (tld.lora_dropout_fwd.launches, tld.lora_dropout_da.launches,
+            tld.lora_dropout_dh.launches)
+
+
+# (M, D, r): the main path's D and r with a ragged M, a small one, and an r
+# that spans three tiles with a ragged last one (the scalar load path)
+LORA_SHAPES = [(4099, 768, 8), (512, 128, 4), (300, 256, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m,d,r", LORA_SHAPES)
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_lora_dropout_kernels_match_plain_versions(dtype, m, d, r, rate):
+    """Kernels #4-#6 against their plain versions on the same inputs: fp32
+    within 1e-5 of the largest value (summation order), bf16 within one
+    bf16 unit in the last place of it, 2**-7 (both round an fp32 sum
+    taken in another order to bf16)."""
+    _need_card()
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt_ = getattr(torch, dtype)
+    h = torch.randn(m, d, generator=gen, device="cuda").to(dt_)
+    a = (0.1 * torch.randn(d, r, generator=gen, device="cuda")).to(dt_)
+    g = torch.randn(m, r, generator=gen, device="cuda").to(dt_)
+    seed = 2 ** 31 - 7
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    before = _lora_launches()
+    got = (tld.lora_dropout_fwd(h, a, seed, rate),
+           tld.lora_dropout_da(h, g, seed, rate),
+           tld.lora_dropout_dh(g, a, seed, rate))
+    torch.cuda.synchronize()
+    assert tuple(n - b for n, b in zip(_lora_launches(), before)) == (1, 1, 1)
+    want = (tld.lora_dropout_fwd_reference(h, a, seed, rate),
+            tld.lora_dropout_da_reference(h, g, seed, rate),
+            tld.lora_dropout_dh_reference(g, a, seed, rate))
+    for name, x, w in zip(("t", "dA", "dh"), got, want):
+        assert x.dtype == w.dtype and x.shape == w.shape, name
+        err = (x.float() - w.float()).abs().max().item()
+        assert err <= tol * w.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_lora_dropout_mask_is_the_hash_dropout_stream(dtype):
+    """With dt @ A^T = 1, dh = keep / (1 - rate): kernel #6 reads the mask
+    back, and it must equal hash_keep_mask (bit-identical to JAX's) at every
+    position; kernel #4 with A = e_0 gives t[:, 0] = keep[:, 0] h / (1-r)."""
+    _need_card()
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld
+    m, d, r, rate, seed = 1000, 256, 8, 0.3, 12345
+    dt_ = getattr(torch, dtype)
+    want = tld.hash_keep_mask((m, d), seed, rate, "cuda")
+    dh = tld.lora_dropout_dh(torch.ones(m, r, device="cuda", dtype=dt_),
+                             torch.full((d, r), 1.0 / r, device="cuda",
+                                        dtype=dt_), seed, rate)
+    assert torch.equal(dh.float() * (1.0 - rate) > 0.5, want)
+    a = torch.zeros(d, r, device="cuda", dtype=dt_)
+    a[0, 0] = 1.0
+    t = tld.lora_dropout_fwd(torch.ones(m, d, device="cuda", dtype=dt_), a,
+                             seed, rate)
+    assert torch.equal(t[:, 0].float() > 0.5, want[:, 0])
+
+
+@pytest.mark.cuda
+def test_lora_dropout_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld
+    h = torch.zeros(64, 128, device="cuda", dtype=torch.bfloat16)
+    a = torch.zeros(128, 8, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tld.lora_dropout_fwd(h.half(), a.half(), 1, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tld.lora_dropout_fwd(h.t().contiguous().t(), a, 1, 0.1)
+    with pytest.raises(ValueError, match="share a dtype"):
+        tld.lora_dropout_dh(torch.zeros(64, 8, device="cuda"), a, 1, 0.1)
+    with pytest.raises(ValueError, match="operands on"):
+        tld.lora_dropout_fwd(h, a.cpu(), 1, 0.1)
+
+
+# (L, dh, masked, rate): HoME's ViT (L = 197, no mask, rate 0), the text
+# shape masked at rate 0.1, L = 128 masked at rate 0, and dh 128
+PACKED_BWD_CASES = [(197, 64, False, 0.0), (384, 64, True, 0.1),
+                    (128, 64, True, 0.0), (256, 128, True, 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,dh,masked,rate", PACKED_BWD_CASES)
+def test_packed_backward_matches_plain_version(l, dh, masked, rate):
+    """flash_attention_packed on a bf16 qkv that needs a gradient: the
+    forward takes the instantiation that stores the softmax statistics and
+    gives the same output, bit for bit, as the serving instantiation; the
+    backward kernel (#7) gives dqkv within 3e-2 of the largest reference
+    gradient of the plain backward on the same bf16 inputs (SPLIT_TOL's
+    reasons)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, heads = 4, 768 // dh
+    hb = tfa._head_group(dh, heads, 6)
+    qkv = torch.randn(b, l, 3 * heads * dh, generator=gen,
+                      device="cuda").bfloat16()
+    g = torch.randn(b, l, heads * dh, generator=gen, device="cuda").bfloat16()
+    pad = None
+    if masked:
+        lens = torch.tensor([l, l // 2, 1, 0], device="cuda")
+        pad = torch.arange(l, device="cuda")[None, :] >= lens[:, None]
+    seed = 77 if rate else None
+    before = (tfa.flash_attention_packed.launches,
+              tfa.flash_attention_packed.stats_launches,
+              tfa.flash_attention_packed_bwd.launches)
+    serving = tfa.flash_attention_packed(qkv, pad, seed, heads, hb, rate)
+    leaf = qkv.clone().requires_grad_()
+    out = tfa.flash_attention_packed(leaf, pad, seed, heads, hb, rate)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_packed.launches,
+            tfa.flash_attention_packed.stats_launches,
+            tfa.flash_attention_packed_bwd.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    assert torch.equal(out, serving)
+    want = tfa.flash_attention_packed_bwd_reference(qkv, pad, seed, g, heads,
+                                                    hb, rate)
+    assert leaf.grad.dtype == qkv.dtype and leaf.grad.shape == qkv.shape
+    err = (leaf.grad.float() - want.float()).abs().max().item()
+    assert err <= SPLIT_TOL["bfloat16"][1] * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_packed_backward_dropout_mask_is_the_jax_stream():
+    """With q = k = 0 every key weighs 1/L, and with dO[q] = e_q the v
+    columns of dqkv read back the keep mask: dv[b, key, h*dh + q] =
+    keep[b, h, q, key] / (L (1-r)), equal to dropout_keep_mask."""
+    _need_card()
+    b, l, dh, heads, rate, seed = 2, 128, 128, 6, 0.3, 31337
+    z = torch.zeros(b, l, heads * dh, device="cuda", dtype=torch.bfloat16)
+    eye = torch.eye(l, dh, device="cuda").repeat(b, 1, heads).bfloat16()
+    qkv = tfa.pack_qkv_weights(z, z, eye, heads, heads).contiguous()
+    leaf = qkv.clone().requires_grad_()
+    tfa.flash_attention_packed(leaf, None, seed, heads, heads,
+                               rate).backward(eye)
+    dv = leaf.grad.reshape(b, l, 3, heads * dh)[:, :, 2]
+    dv = dv.float().reshape(b, l, heads, dh).permute(0, 2, 3, 1)
+    want = tfa.dropout_keep_mask(seed, b, heads, l, l, rate, device="cuda")
+    assert torch.equal(dv * (l * (1.0 - rate)) > 0.5, want)
 
 
 @pytest.mark.cuda

@@ -158,7 +158,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_library_path_tracks_source():
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "lora_dropout"):
         a = cuda_lib.library_path(name)
         assert a.name.startswith(f"lib{name}-")
         assert a.parent == cuda_lib.BUILD_DIR
@@ -233,3 +234,65 @@ def test_split_wrapper_rejects_and_does_not_count_on_cpu():
     tfa.flash_attention(x, x, x, None, 3, H, 0.1).sum().backward()
     assert (tfa.flash_attention.launches,
             tfa.flash_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize("l,hb,masked,rate", [(128, 2, True, 0.1),
+                                              (100, 4, False, 0.0),
+                                              (100, 2, True, 0.0)])
+def test_packed_vjp_matches_jax_interpret(l, hb, masked, rate):
+    """flash_attention_packed's backward (dqkv in the packed layout) against
+    JAX flash_attention_packed(..., interpret=True)'s custom vjp (the
+    packed Pallas backward), same seed, same cotangent: L = 128 masked at
+    rate 0.1, and an L below 128 at rate 0 (the JAX kernel pads it to 128
+    with masked keys; the port masks the ragged tail by bounds)."""
+    import jax
+    b, seed = 2, 91
+    _, _, _, packed = _qkv(b, l, hb, seed=13)
+    g = np.random.default_rng(14).normal(size=(b, l, D)).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.zeros((b, l), np.int8)
+        mask[0, -9:] = 1
+        mask[1, 40:50] = 1
+    jmask = None if mask is None else jnp.asarray(mask)
+    want, vjp = jax.vjp(
+        lambda x: jfa.flash_attention_packed(x, jmask, seed, H, hb, rate,
+                                             True), jnp.asarray(packed))
+    (want_grad,) = vjp(jnp.asarray(g))
+    leaf = torch.from_numpy(packed).requires_grad_()
+    before = (tfa.flash_attention_packed.launches,
+              tfa.flash_attention_packed_bwd.launches)
+    got = tfa.flash_attention_packed(leaf, None if mask is None else
+                                     torch.from_numpy(mask), seed, H, hb,
+                                     rate)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL)
+    got.backward(torch.from_numpy(g))
+    assert leaf.grad.shape == packed.shape
+    np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want_grad),
+                               atol=SPLIT_GRAD_ATOL)
+    assert (tfa.flash_attention_packed.launches,
+            tfa.flash_attention_packed_bwd.launches) == before
+
+
+def test_packed_bwd_reference_is_the_gradient_of_the_forward():
+    """The written-out packed backward equals autograd through the plain
+    packed forward at rate 0.1, and equals the split backward's gradients
+    packed with pack_qkv_weights."""
+    b, l, hb, seed, rate = 1, 128, 2, 6, 0.1
+    q, k, v, packed = _qkv(b, l, hb, seed=15)
+    g = torch.from_numpy(np.random.default_rng(16).normal(
+        size=(b, l, D)).astype(np.float32))
+    pad = torch.zeros(b, l, dtype=torch.bool)
+    pad[0, -3:] = True
+    leaf = torch.from_numpy(packed).requires_grad_()
+    tfa.flash_attention_packed_reference(leaf, pad, seed, H, hb,
+                                         rate).backward(g)
+    got = tfa.flash_attention_packed_bwd_reference(torch.from_numpy(packed),
+                                                   pad, seed, g, H, hb, rate)
+    np.testing.assert_allclose(got.numpy(), leaf.grad.numpy(),
+                               atol=SPLIT_GRAD_ATOL)
+    split = tfa.flash_attention_bwd_reference(
+        *(torch.from_numpy(x) for x in (q, k, v)), pad, seed, g, H, rate)
+    np.testing.assert_allclose(
+        got.numpy(), tfa.pack_qkv_weights(*split, H, hb).numpy(), atol=1e-6)

@@ -51,7 +51,8 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    for mod in ("ops.flash_attention", "ops.cuda_lib", "models.mmoe",
+    for mod in ("ops.flash_attention", "ops.cuda_lib", "ops.lora_dropout",
+                "models.mmoe", "models.home",
                 "eval.predict", "eval.server", "utils.convert", "cli",
                 "train.losses", "train.optimizer", "train.step", "train.loop",
                 "train.checkpoint", "train.preemption", "utils.metrics",

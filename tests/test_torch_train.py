@@ -45,19 +45,27 @@ def _port_cfg(cfg):
     return TConfig.from_dict(cfg.to_dict())
 
 
-def _jax_params(cfg, seed):
-    """Flat '/'-keyed numpy params of the JAX model, every leaf non-zero."""
+def _jax_variables(cfg, seed):
+    """Flat '/'-keyed numpy params of the JAX model, every leaf non-zero,
+    and its batch_stats (HoME's BatchNorm statistics; empty for the
+    baseline): running means N(0, 0.1^2), variances in [0.5, 1.5]."""
     micro = {k: v[0] for k, v in stacked_batch(cfg, seed=0).items()}
     shapes = jax.eval_shape(JModel(cfg.model).init, jax.random.PRNGKey(0),
-                            micro)["params"]
+                            micro)
     rng = np.random.default_rng(seed)
     out = {}
-    for key, leaf in traverse_util.flatten_dict(shapes).items():
+    for key, leaf in traverse_util.flatten_dict(shapes["params"]).items():
         std = leaf.shape[-2] ** -0.5 if key[-1] == "kernel" else 0.1
         v = rng.normal(0, std, leaf.shape)
         out["/".join(key)] = (1.0 + v if key[-1] == "scale" else v).astype(
             np.float32)
-    return out
+    stats = {}
+    for key, leaf in traverse_util.flatten_dict(
+            shapes.get("batch_stats", {})).items():
+        v = (0.5 + rng.random(leaf.shape) if key[-1] == "var"
+             else 0.1 * rng.normal(size=leaf.shape))
+        stats["/".join(key)] = v.astype(np.float32)
+    return out, stats
 
 
 def _to_torch(jax_key: str, value):
@@ -137,7 +145,7 @@ def test_label_param_over_the_full_baseline_tree():
     """Every parameter of the port's model gets the JAX label of its JAX
     counterpart, and split_trainable freezes exactly the frozen ones."""
     cfg = tiny_config()
-    flat = _jax_params(cfg, 0)
+    flat, _ = _jax_variables(cfg, 0)
     model = MMoERecModel(_port_cfg(cfg).model)
     names = dict(model.named_parameters())
     assert sorted(names) == sorted(_torch_name(k) for k in flat)
@@ -214,40 +222,57 @@ def test_adamw_and_clip_updates_match_optax():
 def _no_dropout(cfg):
     m = cfg.model
     m.dropout = m.tower_dropout = 0.0
+    m.home_expert_dropout = m.home_tower_dropout = 0.0
     t = m.text
     t.hidden_dropout = t.attention_dropout = t.lora_dropout = 0.0
     o = cfg.train.optim
     # the schedule gives LoRA lr 0 at counts <= freeze_steps: -1 with a
     # one-count warmup gives it the full lr on the first update
     o.freeze_steps, o.unfreeze_steps, o.lr, o.eps = -1, 1, 0.1, 1.0
+    o.home_freeze_steps, o.home_unfreeze_steps = -1, 1
     return cfg
 
 
-def test_train_step_matches_jax_make_train_step():
-    """One optimizer step (accum 2, every rate 0, LoRA at full lr) from the
-    same params and batch: the loss, grad_norm and every updated trainable
-    parameter against JAX make_train_step."""
-    cfg = _no_dropout(tiny_config())
-    flat = _jax_params(cfg, 7)
+@pytest.mark.parametrize("variant", ["baseline", "home"])
+def test_train_step_matches_jax_make_train_step(variant):
+    """One optimizer step (accum 2, every rate 0, LoRA and HoME's img_ft
+    group at full lr) from the same params, BatchNorm statistics and batch:
+    the loss, its contrastive part (HoME), grad_norm, every updated
+    trainable parameter and the BatchNorm statistics, which carry from one
+    micro-batch to the next, against JAX make_train_step."""
+    cfg = _no_dropout(tiny_config(variant))
+    flat, stats = _jax_variables(cfg, 7)
     batch = stacked_batch(cfg, seed=1)
-    tree = traverse_util.unflatten_dict(
-        {tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
-    trainable, frozen = jopt.split_trainable(tree, "baseline")
-    labels = {k: jopt.label_param(k, "baseline") for k in trainable}
-    tx = jopt.make_optimizer(cfg.train.optim, "baseline", labels)
+    unflat = lambda f: traverse_util.unflatten_dict(
+        {tuple(k.split("/")): jnp.asarray(v) for k, v in f.items()})
+    trainable, frozen = jopt.split_trainable(unflat(flat), variant)
+    labels = {k: jopt.label_param(k, variant) for k in trainable}
+    tx = jopt.make_optimizer(cfg.train.optim, variant, labels)
     state = TrainState(step=jnp.zeros((), jnp.int32), trainable=trainable,
-                       frozen=frozen, batch_stats={},
+                       frozen=frozen,
+                       batch_stats=unflat(stats) if stats else {},
                        opt_state=tx.init(trainable))
     step = jax.jit(make_train_step(cfg, JModel(cfg.model), tx))
     new_state, want = step(state, batch, jax.random.PRNGKey(0))
 
-    trainer = Trainer(_port_cfg(cfg), device="cpu", params=flat)
+    trainer = Trainer(_port_cfg(cfg), device="cpu", params=flat,
+                      batch_stats=stats)
     got = trainer.run_step(batch)
     assert got["skipped_micro"] == int(want["skipped_micro"]) == 0
     np.testing.assert_allclose(got["loss"], float(want["loss"]), atol=1e-5)
+    np.testing.assert_allclose(got["contrastive_loss"],
+                               float(want["contrastive_loss"]), atol=1e-5)
+    assert (got["contrastive_loss"] > 0) == (variant == "home")
     np.testing.assert_allclose(got["grad_norm"], float(want["grad_norm"]),
                                rtol=1e-4)
     assert trainer.step == int(new_state.step) == 1
+    buffers = dict(trainer.model.named_buffers())
+    new_stats = traverse_util.flatten_dict(new_state.batch_stats or {})
+    assert len(buffers) == len(new_stats) == len(stats)
+    for key, value in new_stats.items():
+        np.testing.assert_allclose(buffers[".".join(key)].numpy(),
+                                   np.asarray(value), atol=1e-5,
+                                   err_msg=str(key))
     moved = set()
     for key, value in new_state.trainable.items():
         name, want_p = _to_torch("/".join(key), value)
@@ -322,10 +347,12 @@ def test_checkpoint_round_trip_resumes_exactly(tmp_path):
     assert CheckpointManager(str(tmp_path / "empty")).restore(resumed) is None
 
 
-def test_synth_and_train_cli_on_cpu(tmp_path):
+@pytest.mark.parametrize("variant,loss_range", [("baseline", (1.0, 2.0)),
+                                                 ("home", (1.0, 3.0))])
+def test_synth_and_train_cli_on_cpu(tmp_path, variant, loss_range):
     """`synth` + `train --device=cpu` at the tiny widths: finite losses in
-    the range the JAX CLI shows, no skipped micro-batch, a checkpoint and
-    metrics.jsonl."""
+    the range the JAX CLI shows (HoME adds its three contrastive terms, 0.1
+    each), no skipped micro-batch, a checkpoint and metrics.jsonl."""
     shards = tmp_path / "shards"
     assert cli.main(["synth", f"--output={shards}", "--samples=48",
                      "--samples-per-shard=16"]) == 0
@@ -335,28 +362,31 @@ def test_synth_and_train_cli_on_cpu(tmp_path):
                      f"--train.output_dir={tmp_path / 'out'}",
                      "--train.epochs=1", "--train.steps_per_epoch=4",
                      "--train.optim.grad_accum=2", "--train.log_every=1",
-                     *tiny_cli_flags()]) == 0
+                     *tiny_cli_flags(variant)]) == 0
     lines = [json.loads(line) for line in
              open(tmp_path / "out" / "metrics.jsonl")]
     steps = [line for line in lines if "loss" in line]
     assert len(steps) == 2
     for line in steps:
-        assert 1.0 < line["loss"] < 2.0 and line["skipped_micro"] == 0
+        assert loss_range[0] < line["loss"] < loss_range[1]
+        assert line["skipped_micro"] == 0
+        assert (line["contrastive_loss"] > 0) == (variant == "home")
     assert any("epoch_loss" in line for line in lines)
     assert CheckpointManager(str(tmp_path / "ckpt")).latest_step() == 2
 
 
 # ---------------------------------------------------------------------------
-# chip_smoke.py's train_check limits against wrong backwards
+# chip_smoke.py's train_check and lora_check limits against wrong backwards
 # ---------------------------------------------------------------------------
 
-def _check_cfg(flash: bool):
-    """chip_smoke's small model (hidden 128, dh 64, 128-token chunks) in
-    bf16 with the card's LoRA rank and dropout 0.1 everywhere."""
+def _check_cfg(flash: bool, fused: bool = False,
+               dtype: str = "bfloat16"):
+    """chip_smoke's small model (hidden 128, dh 64, 128-token chunks) with
+    the card's LoRA rank and dropout 0.1 everywhere."""
     cfg = chip_smoke.small_config()
-    cfg.model.compute_dtype = "bfloat16"
+    cfg.model.compute_dtype = dtype
     cfg.model.text.lora_rank = 8
-    cfg.model.text.lora_fused_dropout = False
+    cfg.model.text.lora_fused_dropout = fused
     cfg.model.use_flash_attention = flash
     return cfg
 
@@ -407,7 +437,7 @@ WRONG_BACKWARDS = {
 def plain_path_lora_grads():
     cfg = _check_cfg(flash=False)
     trainer, lora = chip_smoke.check_trainer(cfg, "cpu")
-    return chip_smoke.micro_lora_grads(trainer, lora, _check_micro(cfg))
+    return chip_smoke.micro_grads(trainer, lora, _check_micro(cfg))
 
 
 @pytest.mark.parametrize("backward", sorted(WRONG_BACKWARDS))
@@ -425,14 +455,61 @@ def test_train_check_limits_fail_wrong_backwards(monkeypatch, backward,
         WRONG_BACKWARDS[backward](tfa.flash_attention_bwd_reference))
     cfg = _check_cfg(flash=True)
     trainer, lora = chip_smoke.check_trainer(cfg, "cpu")
-    loss, grads = chip_smoke.micro_lora_grads(trainer, lora,
+    loss, grads = chip_smoke.micro_grads(trainer, lora,
                                               _check_micro(cfg))
     plain_loss, plain = plain_path_lora_grads
-    gap, gap_l2 = chip_smoke.lora_grad_gaps(grads, plain)
+    gap, gap_l2, _ = chip_smoke.grad_gaps(grads, plain)
     print(backward, {"loss_gap": abs(loss - plain_loss),
                      "lora_grad_max_rel_gap": gap,
                      "lora_grad_l2_rel_gap": gap_l2})
     assert abs(loss - plain_loss) <= chip_smoke.CHECK_LOSS_TOL
     within = (gap <= chip_smoke.CHECK_GRAD_TOL
               and gap_l2 <= chip_smoke.CHECK_GRAD_L2_TOL)
+    assert within == (backward == "right"), (gap, gap_l2)
+
+
+def _lora_grads(cfg):
+    trainer, lora = chip_smoke.check_trainer(cfg, "cpu")
+    return chip_smoke.micro_grads(trainer, lora, _check_micro(cfg))
+
+
+WRONG_LORA_BACKWARDS = {
+    "right": None,
+    "da_with_the_next_keep_mask": ("lora_dropout_da_reference", lambda ref: (
+        lambda h, dt, seed, rate: ref(h, dt, seed + 1, rate))),
+    "dh_with_the_next_keep_mask": ("lora_dropout_dh_reference", lambda ref: (
+        lambda dt, a, seed, rate: ref(dt, a, seed + 1, rate))),
+    "dh_without_dropout_scale": ("lora_dropout_dh_reference", lambda ref: (
+        lambda dt, a, seed, rate: ref(dt, a, seed, rate) * (1 - rate))),
+}
+
+
+@pytest.fixture(scope="module")
+def unfused_lora_grads():
+    return _lora_grads(_check_cfg(False, fused=False, dtype="float32"))
+
+
+@pytest.mark.parametrize("backward", sorted(WRONG_LORA_BACKWARDS))
+def test_lora_check_limits_fail_wrong_lora_backwards(monkeypatch, backward,
+                                                     unfused_lora_grads):
+    """chip_smoke.py's lora_check holds the fused LoRA dropout's LoRA
+    gradients to the unfused branch's, fp32, within LORA_CHECK_GRAD_TOL
+    (max) and LORA_CHECK_GRAD_L2_TOL (L2).  Here the fused branch's
+    backward on the CPU is its plain version (right: the branches differ
+    in the last fp32 bits) or that version made wrong: dA (#5) or dh (#6)
+    with the keep mask of the next seed, or dh without its 1/(1-r).  Each
+    wrong one exceeds a limit."""
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld
+    if WRONG_LORA_BACKWARDS[backward] is not None:
+        name, wrong = WRONG_LORA_BACKWARDS[backward]
+        monkeypatch.setattr(tld, name, wrong(getattr(tld, name)))
+    loss, grads = _lora_grads(_check_cfg(False, fused=True, dtype="float32"))
+    plain_loss, plain = unfused_lora_grads
+    gap, gap_l2, _ = chip_smoke.grad_gaps(grads, plain)
+    print(backward, {"loss_gap": abs(loss - plain_loss),
+                     "lora_grad_max_rel_gap": gap,
+                     "lora_grad_l2_rel_gap": gap_l2})
+    assert abs(loss - plain_loss) <= chip_smoke.LORA_CHECK_LOSS_TOL
+    within = (gap <= chip_smoke.LORA_CHECK_GRAD_TOL
+              and gap_l2 <= chip_smoke.LORA_CHECK_GRAD_L2_TOL)
     assert within == (backward == "right"), (gap, gap_l2)

@@ -51,19 +51,40 @@ exits non-zero without the final result line:
      non-zero and their weights unmoved (lr 0 while frozen), examples/s,
      peak memory, device time by kind;
   9. home_check: HoME at 2 text layers on the kernel path against the plain
-     attention path: loss, grad_norm and ViT layer 10-11 gradient gaps.
+     attention path: loss, grad_norm and ViT layer 10-11 gradient gaps;
+ 10. keep_mask_kernel: #8 (the short attentions' dropout keep mask) against
+     its plain version bit for bit at the main path's shapes, the text mask
+     read-back shape and a ragged lk, per call and per training step's 18
+     calls; the train and home_train phases check its launches per step and
+     that the plain version never runs on the card in their steps;
+ 11. eval: the checkpoint the train phase's Trainer wrote (CheckpointManager)
+     restored and evaluated over synthetic shards of 200 samples (a padded
+     trailing batch) at batch 64, on the host clock and under
+     torch.profiler: n, finite AUCs, launches of #1 and #2 per forward;
+     probabilities against the plain attention path and, for a small fp32
+     model, against the CPU; then the CLI `eval --checkpoint` in a
+     subprocess prints the same n and AUCs;
+ 12. home_eval: the HoME checkpoint recalibrated over 2 batches of 128 (the
+     BatchNorm statistics move and stay finite) and evaluated; a small fp32
+     HoME model's recalibrated statistics and probabilities, card against
+     CPU.
 Then one JSON line of kernel records, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Needs one card; exits non-zero
-without one, and outside a checkout of the repository.
+without one, and outside a checkout of the repository.  Checkpoints and
+shards go to the git-ignored _smoke_work/ of the checkout, removed at the
+end.
 """
 from __future__ import annotations
 
 import base64
 import concurrent.futures
 import http.client
+import contextlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -131,6 +152,24 @@ HOME_CHECK_LOSS_TOL = 2e-3
 HOME_CHECK_NORM_TOL = 4e-3
 HOME_CHECK_GRAD_TOL = 0.32
 HOME_CHECK_GRAD_L2_TOL = 0.22
+# keep_mask_kernel: (b, h, lq, lk) of the sentence cross expert's 5
+# attentions and the fuse experts' 4 per micro-batch forward, the text mask
+# read-back shape, and an lk that is not a multiple of 16 (byte stores)
+KEEP_MASK_SHAPES = {"cross": (64, 8, 64, 64), "fuse": (64, 8, 2, 2),
+                    "text_read_back": (4, 12, 384, 384),
+                    "ragged_lk": (64, 8, 64, 50)}
+# eval: synthetic samples (3 full batches of 64 and a padded one of 8)
+EVAL_SAMPLES = 200
+HOME_RECAL_SAMPLES = 256        # 2 recalibration batches of 128
+# the CLI eval in a subprocess against the same evaluation in this one:
+# the same kernels on the same inputs; a flip of two near-equal
+# probabilities by another cuBLAS choice moves an AUC by 1/(pos*neg) ~ 1e-4
+CLI_AUC_TOL = 1e-3
+# small fp32 HoME: recalibrated statistics, card against CPU, of each
+# tensor's largest value (fp32 sums in another order through 2 layers)
+SMALL_STATS_TOL = 1e-4
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, "_smoke_work")
 
 
 def log(phase: str, **fields) -> None:
@@ -354,12 +393,14 @@ def mask_read_back(b, l, heads, dh, rate, seed):
     a chunk of dh keys: out[b, q, h*dh + j] = keep[b, h, q, c*dh + j] /
     (L (1 - r)).  Backward, dO one-hot over a chunk of dh query rows:
     dv[b, key, h*dh + j] = keep[b, h, c*dh + j, key] / (L (1 - r)).  Both
-    must equal dropout_keep_mask, chunk by chunk."""
+    must equal dropout_keep_mask_reference (the plain version, never the
+    kernel #8), chunk by chunk."""
     import torch
     from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
     d = heads * dh
     z = torch.zeros(b, l, d, device="cuda", dtype=torch.bfloat16)
-    want = fa.dropout_keep_mask(seed, b, heads, l, l, rate, device="cuda")
+    want = fa.dropout_keep_mask_reference(seed, b, heads, l, l, rate,
+                                          device="cuda")
     scale = l * (1.0 - rate)
     for c in range(l // dh):
         onehot = torch.zeros(b, l, heads, dh, device="cuda")
@@ -651,7 +692,8 @@ def kind_of(kernel_name: str) -> str:
     """The port's kernels by wrapper (the attention kernels' first template
     flag tells split from packed), then matrix products, then the rest."""
     low = kernel_name.lower()
-    for kernel, kind in (("lora_fwd", "lora_dropout_fwd"),
+    for kernel, kind in (("keep_mask_kernel", "dropout_keep_mask"),
+                         ("lora_fwd", "lora_dropout_fwd"),
                          ("lora_da", "lora_dropout_da"),
                          ("lora_dh", "lora_dropout_dh")):
         if kernel in low:
@@ -904,12 +946,17 @@ def expected_launches(cfg):
     every text layer's of both encoders through #2 and #3, and every LoRA
     site (the targets of every text layer of both encoders) through #4
     and #5 and, where its input needs a gradient, #6: every layer but the
-    first, whose input comes from frozen embeddings and LayerNorm."""
+    first, whose input comes from frozen embeddings and LayerNorm.  The
+    short attentions that stay plain torch draw their dropout mask through
+    #8: the sentence cross expert's self-attention blocks (cross_layers a
+    side) and its cross attention, and the two fuse experts' blocks."""
     m = cfg.model
     accum = cfg.train.optim.grad_accum
     text = 2 * m.text.num_layers
     sites = len(m.text.lora_targets)
     fine_tuned = 2 if m.variant == "home" else 0
+    short = (2 * m.cross_layers + 1 + 2 * m.fuse_depth
+             if m.dropout > 0 else 0)
     return {"flash_attention_packed": accum * m.image.num_layers,
             "flash_attention_packed_stats": accum * fine_tuned,
             "flash_attention_packed_bwd": accum * fine_tuned,
@@ -917,7 +964,8 @@ def expected_launches(cfg):
             "flash_attention_bwd": accum * text,
             "lora_dropout_fwd": accum * text * sites,
             "lora_dropout_da": accum * text * sites,
-            "lora_dropout_dh": accum * (text - 2) * sites}
+            "lora_dropout_dh": accum * (text - 2) * sites,
+            "dropout_keep_mask": accum * short}
 
 
 def kernel_wrappers():
@@ -929,7 +977,8 @@ def kernel_wrappers():
             "lora_dropout_fwd": ld.lora_dropout_fwd,
             "lora_dropout_da": ld.lora_dropout_da,
             "lora_dropout_dh": ld.lora_dropout_dh,
-            "flash_attention_packed_bwd": fa.flash_attention_packed_bwd}
+            "flash_attention_packed_bwd": fa.flash_attention_packed_bwd,
+            "dropout_keep_mask": fa.dropout_keep_mask}
 
 
 def reset_launches() -> None:
@@ -945,6 +994,26 @@ def read_launches():
     out["flash_attention_packed_stats"] = \
         fa.flash_attention_packed.stats_launches
     return out
+
+
+@contextlib.contextmanager
+def plain_masks_on_card():
+    """Counts the calls of dropout_keep_mask_reference on a CUDA device
+    while the block runs (a list, one entry a call)."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    calls, plain = [], fa.dropout_keep_mask_reference
+
+    def spy(*args, **kw):
+        device = kw.get("device", args[7] if len(args) > 7 else "cpu")
+        if torch.device(device).type == "cuda":
+            calls.append(args[1:5])
+        return plain(*args, **kw)
+    fa.dropout_keep_mask_reference = spy
+    try:
+        yield calls
+    finally:
+        fa.dropout_keep_mask_reference = plain
 
 
 def random_batch(cfg, seed: int):
@@ -998,19 +1067,22 @@ def drive_trainer(cfg, timed_steps: int = 3, keep=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t0 = time.perf_counter()
-    metrics = [trainer.run_step(batch)]
-    warm_s = time.perf_counter() - t0
-    step_ms = []
-    for _ in range(timed_steps):
+    with plain_masks_on_card() as plain_masks:
         t0 = time.perf_counter()
-        metrics.append(trainer.run_step(batch))
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-    prof_m, window_ms, by_kind, top = profiled(
-        lambda: trainer.run_step(batch))
+        metrics = [trainer.run_step(batch)]
+        warm_s = time.perf_counter() - t0
+        step_ms = []
+        for _ in range(timed_steps):
+            t0 = time.perf_counter()
+            metrics.append(trainer.run_step(batch))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        prof_m, window_ms, by_kind, top = profiled(
+            lambda: trainer.run_step(batch))
     metrics.append(prof_m)
     launches = read_launches()
+    check(not plain_masks, f"the plain keep mask ran on the card in the "
+                           f"steps: {plain_masks[:3]}")
     peak = torch.cuda.max_memory_allocated()
     steps = len(metrics)
     for m in metrics:
@@ -1033,6 +1105,7 @@ def drive_trainer(cfg, timed_steps: int = 3, keep=None):
                                            / 1e3),
            "peak_bytes": peak, "launches": launches,
            "launches_per_step": per_step,
+           "plain_keep_masks_on_card": len(plain_masks),
            "losses": [m["loss"] for m in metrics],
            "main_losses": [m["main_loss"] for m in metrics],
            "contrastive_losses": [m["contrastive_loss"] for m in metrics],
@@ -1043,8 +1116,23 @@ def drive_trainer(cfg, timed_steps: int = 3, keep=None):
     return trainer, batch, run, prof, kept
 
 
+def save_checkpoint(trainer, name: str) -> str:
+    """The trainer's state through CheckpointManager into _smoke_work/."""
+    from mmoe_multimodal_rec_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+    directory = os.path.join(WORK, name)
+    t0 = time.perf_counter()
+    CheckpointManager(directory).save(trainer.host_step, trainer)
+    log("checkpoint", directory=os.path.relpath(directory, REPO),
+        step=trainer.host_step, seconds=time.perf_counter() - t0,
+        bytes=sum(os.path.getsize(os.path.join(directory, f))
+                  for f in os.listdir(directory)))
+    return directory
+
+
 def phase_train(timed_steps: int = 3):
-    """The baseline training main path at the default configuration."""
+    """The baseline training main path at the default configuration; its
+    trainer's checkpoint for the eval phase."""
     import torch
     trainer, batch, run, prof, _ = drive_trainer(train_config(),
                                                  timed_steps)
@@ -1053,9 +1141,10 @@ def phase_train(timed_steps: int = 3):
               f"train loss {loss}")
     log("train", **run)
     log("train_profile", **prof)
+    ckpt = save_checkpoint(trainer, "ckpt_baseline")
     del trainer, batch
     torch.cuda.empty_cache()
-    return run["launches"], prof["device_ms_by_kind"]
+    return run["launches"], prof["device_ms_by_kind"], ckpt
 
 
 def check_trainer(cfg, device: str):
@@ -1226,9 +1315,10 @@ def phase_home_train(timed_steps: int = 3):
                                        buffers.items() if k.endswith("var"))]
     log("home_train", **run)
     log("home_train_profile", **prof)
+    ckpt = save_checkpoint(trainer, "ckpt_home")
     del trainer, batch, ft, grads, kept
     torch.cuda.empty_cache()
-    return run["launches"], prof["device_ms_by_kind"]
+    return run["launches"], prof["device_ms_by_kind"], ckpt
 
 
 def phase_home_check(text_layers: int = 2):
@@ -1245,6 +1335,335 @@ def phase_home_check(text_layers: int = 2):
                          "flash_attention_packed_bwd",
                          (HOME_CHECK_LOSS_TOL, HOME_CHECK_NORM_TOL,
                           HOME_CHECK_GRAD_TOL, HOME_CHECK_GRAD_L2_TOL))
+
+
+def phase_keep_mask_kernel(rate: float = 0.1):
+    """#8 against dropout_keep_mask_reference on the card, bit for bit, at
+    every shape of KEEP_MASK_SHAPES for seeds of both signs; its time per
+    call at each shape, and one training step's calls (per micro-batch the
+    cross expert's 5 attentions at L = 64 and the fuse experts' 4 at L = 2)
+    back to back, against the plain version's and the bound: the bytes
+    written over the memory rate (it reads nothing)."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    seed = 987654321
+    recs, fns = {}, {}
+    for name, (b, h, lq, lk) in KEEP_MASK_SHAPES.items():
+        err = 0
+        for s in (seed, -12345):
+            got = fa.dropout_keep_mask(s, b, h, lq, lk, rate, device="cuda")
+            torch.cuda.synchronize()
+            want = fa.dropout_keep_mask_reference(s, b, h, lq, lk, rate,
+                                                  device="cuda")
+            check(got.dtype == torch.bool and got.shape == want.shape,
+                  f"keep mask {name}: {got.dtype} {tuple(got.shape)}")
+            err = max(err, (got.int() - want.int()).abs().max().item())
+            check(torch.equal(got, want),
+                  f"keep mask {name}, seed {s}: kernel differs from the "
+                  f"plain version in {(got != want).sum().item()} places")
+        kernel = (lambda b=b, h=h, lq=lq, lk=lk: fa.dropout_keep_mask(
+            seed, b, h, lq, lk, rate, device="cuda"))
+        plain = (lambda b=b, h=h, lq=lq, lk=lk: fa.dropout_keep_mask_reference(
+            seed, b, h, lq, lk, rate, device="cuda"))
+        nbytes = b * h * lq * lk
+        recs[name] = {"shape": [b, h, lq, lk], "max_abs_err": float(err),
+                      "io_bytes": nbytes,
+                      "ms": cuda_ms(kernel, iters=100, warmup=10),
+                      "plain_ms": cuda_ms(plain, iters=10, warmup=2),
+                      "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+        fns[name] = (kernel, plain)
+    m = train_config().model
+    accum = train_config().train.optim.grad_accum
+    n_cross = accum * (2 * m.cross_layers + 1)
+    n_fuse = accum * 2 * m.fuse_depth
+    check(n_cross + n_fuse
+          == expected_launches(train_config())["dropout_keep_mask"],
+          "keep mask calls per step")
+
+    def step(side):
+        def run():
+            for _ in range(n_cross):
+                fns["cross"][side]()
+            for _ in range(n_fuse):
+                fns["fuse"][side]()
+        return run
+    per_step = {"calls": n_cross + n_fuse,
+                "ms": cuda_ms(step(0), iters=20, warmup=3),
+                "plain_ms": cuda_ms(step(1), iters=5, warmup=1),
+                "bound_ms": (n_cross * recs["cross"]["bound_ms"]
+                             + n_fuse * recs["fuse"]["bound_ms"])}
+    log("keep_mask_kernel", rate=rate, equal=True, library_ms=None,
+        library_reason="no single PyTorch call computes this hash",
+        cases=recs)
+    log("keep_mask_kernel_step", **per_step)
+    return recs, per_step
+
+
+# ---------------------------------------------------------------------------
+# phases 11 and 12: evaluation from the trainers' checkpoints
+# ---------------------------------------------------------------------------
+
+def eval_config(variant: str = "baseline"):
+    """The training shape's model (batch 64, 2 chunks per sample) scoring
+    the synthetic shards of _smoke_work/shards."""
+    cfg = train_config()
+    cfg.model.variant = variant
+    cfg.data.allow_hash_tokenizer = True
+    cfg.data.valid_pattern = os.path.join(WORK, "shards", "*.tar.gz")
+    cfg.train.output_dir = os.path.join(WORK, f"eval_{variant}")
+    return cfg
+
+
+def write_eval_shards():
+    from mmoe_multimodal_rec_tpu_torch.data.synthetic import (
+        write_synthetic_shards)
+    t0 = time.perf_counter()
+    paths = write_synthetic_shards(os.path.join(WORK, "shards"),
+                                   EVAL_SAMPLES, 64, seed=0)
+    log("eval_shards", samples=EVAL_SAMPLES, shards=len(paths),
+        seconds=time.perf_counter() - t0)
+    return paths
+
+
+def restored_model(cfg, ckpt: str):
+    """MMoERecModel of `cfg` on the card with the checkpoint's tensors."""
+    from mmoe_multimodal_rec_tpu_torch.models.mmoe import (DTYPES,
+                                                           MMoERecModel)
+    from mmoe_multimodal_rec_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+    model = MMoERecModel(cfg.model)
+    step = CheckpointManager(ckpt).restore_model(model)
+    check(step is not None, f"no checkpoint in {ckpt}")
+    return model.to(device="cuda", dtype=DTYPES[cfg.model.param_dtype]), step
+
+
+def first_eval_batch(cfg, shards, device):
+    """The eval loader's first batch of `cfg`, as tensors on `device`."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.data.loader import make_eval_loader
+    from mmoe_multimodal_rec_tpu_torch.data.packer import packer_from_config
+    loader = make_eval_loader(shards, cfg.train.batch_size,
+                              packer_from_config(cfg),
+                              chunk_budget=cfg.model.packer.chunk_budget)
+    try:
+        batch = next(iter(loader))
+    finally:
+        loader.close()
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def prob_gap(got, want) -> float:
+    """Largest probability difference over the valid rows."""
+    valid = want["valid"].bool().cpu()
+    return max((got[k].float().cpu() - want[k].float().cpu())[valid]
+               .abs().max().item() for k in ("prob_good", "prob_best"))
+
+
+def check_eval_launches(counts, cfg, forwards: int, phase: str):
+    """Each eval forward (LoRA unmerged) runs every ViT layer through #1
+    and every layer of both text encoders through #2 at rate 0; nothing
+    else launches."""
+    want = {k: 0 for k in counts}
+    want["flash_attention_packed"] = cfg.model.image.num_layers * forwards
+    want["flash_attention"] = 2 * cfg.model.text.num_layers * forwards
+    check(counts == want, f"{phase}: launches {counts}, expected {want}")
+
+
+def small_models(variant: str):
+    """The small fp32 model (small_config) of `variant`, seeded init, on
+    the card and on the CPU."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.models.layers import init_weights
+    from mmoe_multimodal_rec_tpu_torch.models.mmoe import MMoERecModel
+    cfg = small_config()
+    cfg.model.variant = variant
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = MMoERecModel(cfg.model)
+        init_weights(model, torch.Generator().manual_seed(cfg.train.seed))
+        out[device] = model.to(device)
+    return cfg, out
+
+
+def cli_eval(ckpt: str, cfg, extra=()):
+    """`python -m mmoe_multimodal_rec_tpu_torch eval --checkpoint=<ckpt>` in
+    a subprocess at the phase's configuration: its printed result and
+    seconds."""
+    flags = [f"--checkpoint={ckpt}",
+             f"--train.batch_size={cfg.train.batch_size}",
+             f"--model.packer.chunk_budget={cfg.model.packer.chunk_budget}",
+             f"--model.variant={cfg.model.variant}",
+             "--data.allow_hash_tokenizer=true",
+             f"--data.valid_pattern={cfg.data.valid_pattern}",
+             f"--train.output_dir={os.path.join(WORK, 'eval_cli')}", *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "mmoe_multimodal_rec_tpu_torch", "eval", *flags],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"CLI eval exited {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), seconds
+
+
+def phase_eval(ckpt: str, shards):
+    """The baseline checkpoint restored and evaluated at full width: one
+    pass on the host clock (the main path, its launches counted), one under
+    torch.profiler; the first batch's probabilities against the plain
+    attention path; a small fp32 model card against CPU; the CLI."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.eval.evaluate import evaluate
+    from mmoe_multimodal_rec_tpu_torch.train.step import make_eval_step
+    cfg = eval_config()
+    t0 = time.perf_counter()
+    model, step = restored_model(cfg, ckpt)
+    restore_s = time.perf_counter() - t0
+    forwards = math.ceil(EVAL_SAMPLES / cfg.train.batch_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate(cfg, model, shards, output_dir=cfg.train.output_dir,
+                   save_preds="preds.csv")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(res["n"] == EVAL_SAMPLES and math.isfinite(res["good"])
+          and math.isfinite(res["best"]), f"eval result {res}")
+    check_eval_launches(counts, cfg, forwards, "eval")
+    again, window_ms, by_kind, top = profiled(
+        lambda: evaluate(cfg, model, shards))
+    check(again["n"] == res["n"]
+          and abs(again["good"] - res["good"]) <= CLI_AUC_TOL
+          and abs(again["best"] - res["best"]) <= CLI_AUC_TOL,
+          f"a second pass gave {again}, the first {res}")
+    for kind in ("flash_attention_packed", "flash_attention"):
+        check(by_kind.get(kind, 0.0) > 0, f"no device time of {kind}")
+    device_ms = sum(by_kind.values())
+
+    batch = first_eval_batch(cfg, shards, "cuda")
+    got = make_eval_step(cfg, model)(batch)
+    del model
+    torch.cuda.empty_cache()
+    cfg_plain = eval_config()
+    cfg_plain.model.use_flash_attention = False
+    plain, _ = restored_model(cfg_plain, ckpt)
+    before = read_launches()
+    want = make_eval_step(cfg_plain, plain)(batch)
+    check(read_launches() == before, "the plain path launched a kernel")
+    plain_err = prob_gap(got, want)
+    check(plain_err <= PLAIN_PATH_TOL,
+          f"eval, kernel path vs plain path: max prob diff {plain_err}")
+    del plain, batch
+    torch.cuda.empty_cache()
+
+    small, models = small_models("baseline")
+    before = read_launches()
+    outs = {d: make_eval_step(small, m)(first_eval_batch(small, shards, d))
+            for d, m in models.items()}
+    after = read_launches()
+    check(after["flash_attention"] > before["flash_attention"]
+          and after["flash_attention_packed"]
+          > before["flash_attention_packed"],
+          "the small model did not take the kernels")
+    small_err = prob_gap(outs["cuda"], outs["cpu"])
+    check(small_err <= SMALL_CPU_TOL,
+          f"eval, small fp32 model GPU vs CPU: max prob diff {small_err}")
+
+    cli, cli_s = cli_eval(ckpt, cfg)
+    cli_gap = max(abs(cli["auc_good"] - res["good"]),
+                  abs(cli["auc_best"] - res["best"]))
+    check(cli["n"] == res["n"] and cli_gap <= CLI_AUC_TOL,
+          f"CLI eval printed {cli}, in-process {res}")
+    log("eval", batch=cfg.train.batch_size, samples=EVAL_SAMPLES,
+        forwards=forwards, checkpoint_step=step, restore_s=restore_s,
+        eval_s=eval_s, examples_per_sec=EVAL_SAMPLES / eval_s,
+        peak_bytes=peak, launches=counts,
+        launches_per_forward={k: v / forwards for k, v in counts.items()
+                              if v},
+        auc_good=res["good"], auc_best=res["best"], n=res["n"],
+        kernel_vs_plain_path_max_prob_diff=plain_err,
+        small_fp32_gpu_vs_cpu_max_prob_diff=small_err,
+        cli=cli, cli_seconds=cli_s, cli_auc_gap=cli_gap)
+    log("eval_profile", forwards=forwards, window_ms=window_ms,
+        device_ms=device_ms, device_busy_share=device_ms / window_ms,
+        device_ms_per_forward_by_kind={k: v / forwards
+                                       for k, v in by_kind.items()},
+        top_kernels_ms=top)
+    return {"counts": counts, "by_kind": by_kind, "forwards": forwards}
+
+
+def phase_home_eval(ckpt: str, shards):
+    """The HoME checkpoint restored at full width, its BatchNorm statistics
+    recalibrated over 2 batches of 128, then evaluated; a small fp32 HoME
+    model recalibrated and scored on the card and on the CPU."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.data.packer import packer_from_config
+    from mmoe_multimodal_rec_tpu_torch.eval.evaluate import (evaluate,
+                                                             recalibrate_bn)
+    from mmoe_multimodal_rec_tpu_torch.train.step import make_eval_step
+    cfg = eval_config("home")
+    model, step = restored_model(cfg, ckpt)
+    before = {k: b.clone() for k, b in model.named_buffers()}
+    recal_batches = math.ceil(HOME_RECAL_SAMPLES / 128)
+    forwards = math.ceil(EVAL_SAMPLES / cfg.train.batch_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = recalibrate_bn(cfg, model, shards, packer_from_config(cfg),
+                           total_samples=HOME_RECAL_SAMPLES,
+                           bn_batch_size=128)
+    torch.cuda.synchronize()
+    recal_s = time.perf_counter() - t0
+    check(len(stats) == 12 and all(torch.isfinite(b).all()
+                                   for b in stats.values()),
+          "recalibrated BatchNorm statistics")
+    moved = [k for k, b in stats.items() if not torch.equal(b, before[k])]
+    check(len(moved) == len(stats), f"statistics moved: {moved}")
+    t0 = time.perf_counter()
+    res = evaluate(cfg, model, shards)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(res["n"] == EVAL_SAMPLES and math.isfinite(res["good"])
+          and math.isfinite(res["best"]), f"HoME eval result {res}")
+    check_eval_launches(counts, cfg, forwards + recal_batches, "home_eval")
+    var_range = [min(b.min().item() for k, b in stats.items()
+                     if k.endswith("var")),
+                 max(b.max().item() for k, b in stats.items()
+                     if k.endswith("var"))]
+    del model, stats, before
+    torch.cuda.empty_cache()
+
+    small, models = small_models("home")
+    packer = packer_from_config(small)
+    got = {}
+    for device, m in models.items():
+        recalibrate_bn(small, m, shards, packer, total_samples=8,
+                       bn_batch_size=4)
+        got[device] = ({k: b.cpu() for k, b in m.named_buffers()},
+                       make_eval_step(small, m)(
+                           first_eval_batch(small, shards, device)))
+    stats_err = max((got["cuda"][0][k] - w).abs().max().item()
+                    / w.abs().max().item() for k, w in got["cpu"][0].items())
+    small_err = prob_gap(got["cuda"][1], got["cpu"][1])
+    check(stats_err <= SMALL_STATS_TOL,
+          f"small HoME recalibrated statistics GPU vs CPU: {stats_err}")
+    check(small_err <= SMALL_CPU_TOL,
+          f"small HoME GPU vs CPU: max prob diff {small_err}")
+    log("home_eval", checkpoint_step=step,
+        recal_batches=recal_batches, recal_batch=128, recal_s=recal_s,
+        eval_s=eval_s, examples_per_sec=EVAL_SAMPLES / eval_s,
+        peak_bytes=peak, launches=counts, batch_norm_var_range=var_range,
+        auc_good=res["good"], auc_best=res["best"], n=res["n"],
+        small_fp32_stats_gpu_vs_cpu=stats_err,
+        small_fp32_gpu_vs_cpu_max_prob_diff=small_err)
+    return counts
 
 
 def ptxas_report(log_text: str):
@@ -1284,21 +1703,30 @@ def main() -> int:
     smi = nvidia_smi()
     log("device", name=name, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
-    build_all(("flash_attention_fwd", "flash_attention_bwd", "lora_dropout"))
+    build_all(("flash_attention_fwd", "flash_attention_bwd", "lora_dropout",
+               "dropout_keep_mask"))
 
     (text, vit, drop), forward = phase_kernels()
     split, split0, split_step = phase_split_kernels()
     lora, lora_step = phase_lora_kernels()
     pbwd, pbwd_text, pbwd_step = phase_packed_bwd_kernel()
+    keep, keep_step = phase_keep_mask_kernel()
     pred, launches, kernel_ms = phase_predictor(batch=64, forwards=3,
                                                 profiled_forwards=2)
     phase_server(pred)
     del pred
     torch.cuda.empty_cache()
-    train_launches, train_ms = phase_train()
-    phase_train_check()
-    home_launches, home_ms = phase_home_train()
-    phase_home_check()
+    shutil.rmtree(WORK, ignore_errors=True)
+    try:
+        train_launches, train_ms, ckpt = phase_train()
+        phase_train_check()
+        home_launches, home_ms, home_ckpt = phase_home_train()
+        phase_home_check()
+        shards = write_eval_shards()
+        phase_eval(ckpt, shards)
+        phase_home_eval(home_ckpt, shards)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
 
     calls = lambda key: TEXT["calls"] * text[key] + VIT["calls"] * vit[key]
     source = "mmoe_multimodal_rec_tpu_torch/csrc/"
@@ -1387,6 +1815,24 @@ def main() -> int:
         "bound_ms": pbwd_step["bound_ms"], "bound_by": pbwd["bound_by"],
         "per_call": {k: pbwd[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms", "max_abs_err")}})
+    records.append({
+        "name": "dropout_keep_mask", "route": "cuda",
+        "source": f"{source}dropout_keep_mask.cu",
+        "replaces": f"{replaces}606",
+        "launches": train_launches["dropout_keep_mask"],
+        "launches_home": home_launches["dropout_keep_mask"],
+        "max_abs_err": max(c["max_abs_err"] for c in keep.values()),
+        # per training step (keep_step["calls"] calls).  ms: the kernel's
+        # device time in the train phase's profiled step; the rest: one
+        # step's worth of calls timed back to back (phase_keep_mask_kernel)
+        "ms": train_ms["dropout_keep_mask"],
+        "ms_back_to_back": keep_step["ms"],
+        "plain_ms": keep_step["plain_ms"], "library_ms": None,
+        "library_reason": "no single PyTorch call computes this hash",
+        "bound_ms": keep_step["bound_ms"], "bound_by": "bytes",
+        "per_call": {k: {f: c[f] for f in ("shape", "ms", "plain_ms",
+                                           "bound_ms", "max_abs_err")}
+                     for k, c in keep.items()}})
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,24 @@
-"""Command-line entry point of the PyTorch port: `synth`, `train`, `serve`.
+"""Command-line entry point of the PyTorch port: `synth`, `train`, `eval`,
+`serve`.
 
   python -m mmoe_multimodal_rec_tpu_torch synth --output=shards --samples=48
   python -m mmoe_multimodal_rec_tpu_torch train \\
       --data.train_pattern='shards/*.tar.gz' --data.allow_hash_tokenizer=true
       (add --model.variant=home for the HoME model)
+  python -m mmoe_multimodal_rec_tpu_torch eval \\
+      --data.valid_pattern='shards/*.tar.gz' --data.allow_hash_tokenizer=true
+      (HoME: add --recalibrate-bn)
   python -m mmoe_multimodal_rec_tpu_torch serve --batch-size=64 \\
       --data.allow_hash_tokenizer=true
 
-Each takes the JAX CLI's flags and dotted config overrides; `train` and
-`serve` also take `--device` (default cuda; cpu runs the plain PyTorch
-path).  `train` writes the port's own torch checkpoints and resumes from
-them.  `serve` does not load a checkpoint yet (orbax, reference .pt or the
-port's): with none it scores with seeded init weights, as the JAX CLI does
-when it finds none.
+Each takes the JAX CLI's flags and dotted config overrides; `train`,
+`eval` and `serve` also take `--device` (default cuda, which raises
+without a card; cpu runs the plain PyTorch path).  `train` writes the
+port's own torch checkpoints and resumes from them.  `eval` and `serve`
+load the port's checkpoints (`--checkpoint`, else train.checkpoint_dir) or
+a reference torch .pt (`--reference-ckpt`); with neither they score seeded
+init weights, as the JAX CLI does when it finds no checkpoint.  The JAX
+trainer's orbax checkpoints are refused: reading them needs a design first.
 """
 from __future__ import annotations
 
@@ -71,6 +77,90 @@ def cmd_train(argv: List[str]) -> int:
     return 0
 
 
+def _inference_model(cfg: Config, checkpoint: Optional[str],
+                     reference_ckpt: Optional[str], tag: str,
+                     device="cuda"):
+    """The unmerged model for eval and serving, on `device`: the port's own
+    checkpoint (`checkpoint`, else train.checkpoint_dir), or a reference
+    torch .pt converted on the fly over seeded init weights, or the seeded
+    init weights alone when there is no checkpoint.  Returns (model,
+    optimizer steps of the checkpoint, 0 without one).  Mirrors the JAX
+    CLI's `_restore_for_inference`."""
+    import torch
+
+    from .models.layers import init_weights
+    from .models.mmoe import DTYPES, MMoERecModel
+    from .train.checkpoint import CheckpointManager, check_not_orbax
+    from .utils.hf_convert import load_reference_checkpoint
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device=cpu to run the "
+                           "plain PyTorch path")
+    directory = checkpoint or cfg.train.checkpoint_dir
+    if reference_ckpt:
+        if not os.path.isfile(reference_ckpt):
+            raise FileNotFoundError(f"--reference-ckpt {reference_ckpt!r} "
+                                    "is not a file")
+    else:
+        if checkpoint and not os.path.isdir(checkpoint):
+            raise FileNotFoundError(f"--checkpoint {checkpoint!r} is not a "
+                                    "directory")
+        check_not_orbax(directory)
+    model = MMoERecModel(cfg.model)
+    step = 0
+    if reference_ckpt:
+        # what the reference checkpoint lacks keeps the seeded init
+        init_weights(model, torch.Generator().manual_seed(cfg.train.seed))
+        # tensors and plain containers only: the file comes from outside
+        ckpt = torch.load(reference_ckpt, map_location="cpu",
+                          weights_only=True)
+        load_reference_checkpoint(model, ckpt, cfg.model,
+                                  log=lambda line: print(line, flush=True))
+        print(f"[{tag}] loaded reference checkpoint {reference_ckpt}",
+              flush=True)
+    else:
+        # the port's own checkpoints hold every tensor (a strict load)
+        restored = CheckpointManager(directory).restore_model(model)
+        if restored is None:
+            init_weights(model, torch.Generator().manual_seed(cfg.train.seed))
+            print(f"[{tag}] WARNING: no checkpoint found, using init "
+                  "weights", flush=True)
+        else:
+            step = restored
+            print(f"[{tag}] restored step={step}", flush=True)
+    model.to(device=device, dtype=DTYPES[cfg.model.param_dtype])
+    return model, step
+
+
+def cmd_eval(argv: List[str]) -> int:
+    """AUC over data.valid_pattern (eval/evaluate.py); HoME recalibrates
+    its BatchNorm statistics first with --recalibrate-bn."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--checkpoint", type=str, default=None,
+                    help="the port's checkpoint dir (defaults to "
+                         "train.checkpoint_dir)")
+    ap.add_argument("--reference-ckpt", type=str, default=None,
+                    help="torch .pt checkpoint in the reference layout "
+                         "(train.py:351-363), converted on the fly")
+    ap.add_argument("--recalibrate-bn", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to evaluate on (cpu runs the plain "
+                         "PyTorch path)")
+    cfg_flags, rest = _split_flags(argv)
+    args = ap.parse_args(rest)
+    cfg = Config.from_flags(cfg_flags)
+
+    from .eval.evaluate import evaluate_from_config
+
+    model, _ = _inference_model(cfg, args.checkpoint, args.reference_ckpt,
+                                "eval", args.device)
+    res = evaluate_from_config(cfg, model, recalibrate=args.recalibrate_bn)
+    print(json.dumps({"auc_good": res["good"], "auc_best": res["best"],
+                      "n": res["n"]}))
+    return 0
+
+
 def cmd_serve(argv: List[str]) -> int:
     """Online prediction server over the LoRA-merged forward
     (eval/server.py): /v1/predict, /healthz, /varz."""
@@ -90,8 +180,12 @@ def cmd_serve(argv: List[str]) -> int:
                          "requests into one device batch")
     ap.add_argument("--no-merge-lora", action="store_true")
     ap.add_argument("--recalibrate-bn", action="store_true",
-                    help="HoME BatchNorm recalibration (not yet ported)")
-    ap.add_argument("--recal-samples", type=int, default=None)
+                    help="refresh HoME BatchNorm running stats over "
+                         "data.valid_pattern before serving (same pass as "
+                         "eval --recalibrate-bn)")
+    ap.add_argument("--recal-samples", type=int, default=None,
+                    help="cap the recalibration stream at this many samples "
+                         "(default: one full pass over data.valid_pattern)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu runs the plain "
                          "PyTorch path)")
@@ -99,33 +193,39 @@ def cmd_serve(argv: List[str]) -> int:
     args = ap.parse_args(rest)
     cfg = Config.from_flags(cfg_flags)
 
-    if args.checkpoint or args.reference_ckpt:
-        raise NotImplementedError("loading a checkpoint (--checkpoint / "
-                                  "--reference-ckpt) is not yet ported")
-    ckpt_dir = cfg.train.checkpoint_dir
-    if os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
-        raise NotImplementedError(f"train.checkpoint_dir {ckpt_dir!r} holds "
-                                  "a checkpoint, and loading one is not yet "
-                                  "ported")
-    if args.recalibrate_bn:
-        raise NotImplementedError("--recalibrate-bn (HoME) is not yet ported")
-
     from .eval.predict import Predictor
     from .eval.server import PredictionServer
 
-    print("[serve] WARNING: no checkpoint found, using init weights",
-          flush=True)
+    shards = None
+    if args.recalibrate_bn:
+        from .data.io import fs_glob
+        shards = fs_glob(cfg.data.valid_pattern)
+        if not shards:
+            raise FileNotFoundError(
+                f"--recalibrate-bn needs data.valid_pattern shards "
+                f"(no match for {cfg.data.valid_pattern!r})")
+    model, step = _inference_model(cfg, args.checkpoint, args.reference_ckpt,
+                                   "serve", args.device)
+    if shards:
+        from .data.packer import packer_from_config
+        from .eval.evaluate import recalibrate_bn
+        print("[serve] recalibrating BatchNorm running stats...", flush=True)
+        recalibrate_bn(cfg, model, shards, packer_from_config(cfg),
+                       total_samples=args.recal_samples,
+                       bn_batch_size=cfg.train.batch_size)
     buckets = ([int(x) for x in args.buckets.split(",")]
                if args.buckets else None)
-    predictor = Predictor(cfg, batch_size=args.batch_size,
+    predictor = Predictor(cfg, state=model.state_dict(),
+                          batch_size=args.batch_size,
                           merge_lora=not args.no_merge_lora,
                           buckets=buckets, device=args.device)
+    del model
     print(f"[serve] warmup (buckets {predictor.buckets})...", flush=True)
     predictor.warmup()
     server = PredictionServer(
         predictor, host=args.host, port=args.port,
         max_wait_ms=args.max_wait_ms,
-        model_info={"variant": cfg.model.variant, "step": 0,
+        model_info={"variant": cfg.model.variant, "step": step,
                     "lora_merged": not args.no_merge_lora})
     print(json.dumps({"serving": f"{args.host}:{server.port}",
                       "batch_size": predictor.batch_size}), flush=True)
@@ -149,7 +249,8 @@ def cmd_serve(argv: List[str]) -> int:
     return 0
 
 
-COMMANDS = {"synth": cmd_synth, "train": cmd_train, "serve": cmd_serve}
+COMMANDS = {"synth": cmd_synth, "train": cmd_train, "eval": cmd_eval,
+            "serve": cmd_serve}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

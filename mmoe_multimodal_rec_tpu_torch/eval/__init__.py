@@ -1,1 +1,2 @@
-"""Serving: the Predictor and its HTTP front-end."""
+"""Evaluation and serving: AUC, the streamed eval pass with HoME's
+BatchNorm recalibration, the Predictor and its HTTP front-end."""

@@ -25,22 +25,27 @@ from ..data.packer import TextPacker, packer_from_config
 from ..models.layers import init_weights
 from ..models.mmoe import DTYPES, MMoERecModel
 from ..utils.convert import load_jax_params
-from ..utils.lora import merged_model_config
+from ..utils.lora import merge_lora_state, merged_model_config
 
 
 class Predictor:
     def __init__(self, cfg: Config,
                  params: Optional[Mapping[str, np.ndarray]] = None, *,
+                 batch_stats: Optional[Mapping[str, np.ndarray]] = None,
+                 state: Optional[Mapping[str, torch.Tensor]] = None,
                  batch_size: Optional[int] = None, tokenizer=None,
                  merge_lora: bool = True,
                  buckets: Optional[Sequence[int]] = None,
                  device="cuda"):
         """params: the JAX param tree flattened with '/'-joined keys (numpy
-        arrays, utils/convert.py); None serves weights initialised from
-        train.seed — with LoRA B at zero, the merged init equals the base
-        init exactly.
+        arrays, utils/convert.py), and batch_stats its HoME BatchNorm
+        statistics flattened the same way; or state: the port's own
+        state_dict of an unmerged MMoERecModel (a trained, restored or
+        recalibrated model's, train/checkpoint.restore_model), BatchNorm
+        statistics included.  Neither: weights initialised from train.seed
+        — with LoRA B at zero, the merged init equals the base init exactly.
 
-        merge_lora: fold the LoRA adapters into the base kernels
+        merge_lora: fold the (trained) LoRA adapters into the base kernels
         (utils/lora.py) so the text attention takes the packed kernel.
 
         buckets: ascending batch-size buckets (e.g. [4, 16, 64]); an
@@ -66,11 +71,19 @@ class Predictor:
         if merge_lora and model_cfg.text.lora_rank > 0:
             model_cfg = merged_model_config(model_cfg)
         self.model = MMoERecModel(model_cfg)
-        if params is None:
+        if params is not None and state is not None:
+            raise ValueError("pass params (JAX) or state (the port's), not "
+                             "both")
+        if state is not None:
+            if merge_lora and cfg.model.text.lora_rank > 0:
+                state = merge_lora_state(state, cfg.model.text.lora_alpha)
+            self.model.load_state_dict(state, strict=True)
+        elif params is not None:
+            load_jax_params(self.model, params, cfg.model, merge_lora,
+                            batch_stats=batch_stats)
+        else:
             gen = torch.Generator().manual_seed(cfg.train.seed)
             init_weights(self.model, gen)
-        else:
-            load_jax_params(self.model, params, cfg.model, merge_lora)
         self.model.to(device=self.device,
                       dtype=DTYPES[model_cfg.param_dtype]).eval()
 

@@ -206,7 +206,8 @@ def _dot_product_attention(q, k, v, pad_mask: Optional[torch.Tensor],
                            seed: Optional[int] = None) -> torch.Tensor:
     """Plain attention in head-split layout q,k,v [B, L, H, Dh]; pad_mask
     [B, Lk] True = pad.  Scores in the compute dtype, softmax in fp32;
-    dropout on the weights (rate > 0) with the attention counter hash."""
+    dropout on the weights (rate > 0) with the attention counter hash, its
+    mask from `dropout_keep_mask` (on a CUDA tensor the Hopper kernel)."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
     if pad_mask is not None:
         scores = scores.masked_fill(pad_mask[:, None, None, :], NEG_INF)

@@ -24,8 +24,11 @@ backward wrapper: one per call, which runs its dq and dk/dv kernels).
 
 Dropout uses the JAX interpret-mode keep mask: a murmur3-finalizer hash
 over the counter ((b*H + h)*Lq + q)*Lk_pad + k (Lk_pad = Lk rounded up to
-128), keep = bits >= uint32(rate * (2^32 - 1)); `dropout_keep_mask` builds
-it, so given the same seed the masks equal JAX's bit for bit.
+128), keep = bits >= uint32(rate * (2^32 - 1)); given the same seed the
+masks equal JAX's bit for bit.  `dropout_keep_mask` writes it out as a bool
+[b, h, lq, lk] tensor (the plain version `dropout_keep_mask_reference` on
+the CPU, csrc/dropout_keep_mask.cu on a CUDA device); the plain versions
+above use the plain mask.
 """
 from __future__ import annotations
 
@@ -86,10 +89,11 @@ def _threshold(rate: float) -> int:
     return int(min(max(rate, 0.0), 1.0) * 4294967295.0)
 
 
-def dropout_keep_mask(seed: int, b: int, h: int, lq: int, lk: int,
-                      rate: float, lk_padded: Optional[int] = None,
-                      device="cpu") -> torch.Tensor:
-    """Bool keep mask [b, h, lq, lk] of the portable stream, equal to JAX
+def dropout_keep_mask_reference(seed: int, b: int, h: int, lq: int, lk: int,
+                                rate: float, lk_padded: Optional[int] = None,
+                                device="cpu") -> torch.Tensor:
+    """Plain PyTorch version of `dropout_keep_mask`: the bool keep mask
+    [b, h, lq, lk] of the portable stream, equal to JAX
     `dropout_keep_mask(..., interpret=True)` (the counter strides over the
     key length rounded up to 128, as there)."""
     lk_p = lk_padded or (-(-lk // _LANE) * _LANE)
@@ -131,8 +135,8 @@ def flash_attention_packed_reference(qkv: torch.Tensor,
         scores = scores.masked_fill(pad_mask.bool()[:, None, None, :], NEG_INF)
     p = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(seed or 0, b, n_heads, l, l, dropout_rate,
-                                 device=qkv.device)
+        keep = dropout_keep_mask_reference(seed or 0, b, n_heads, l, l,
+                                           dropout_rate, device=qkv.device)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v)
     return out.reshape(b, l, d).to(qkv.dtype)
@@ -173,8 +177,8 @@ def flash_attention_reference(q, k, v, pad_mask=None,
     b, l, d = q.shape
     p = _probs(q, k, pad_mask, n_heads)
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(seed or 0, b, n_heads, l, l, dropout_rate,
-                                 device=q.device)
+        keep = dropout_keep_mask_reference(seed or 0, b, n_heads, l, l,
+                                           dropout_rate, device=q.device)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     vh = v.float().reshape(b, l, n_heads, d // n_heads)
     return torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, l, d).to(q.dtype)
@@ -194,8 +198,8 @@ def _bwd_heads(qh, kh, vh, gh, pad_mask, seed: Optional[int],
     dp = torch.einsum("bqhd,bkhd->bhqk", gh, vh)
     p_drop = p
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(seed or 0, b, n_heads, l, l, dropout_rate,
-                                 device=qh.device)
+        keep = dropout_keep_mask_reference(seed or 0, b, n_heads, l, l,
+                                           dropout_rate, device=qh.device)
         p_drop = torch.where(keep, p, 0.0)
         dp = torch.where(keep, dp, 0.0)
     dv = torch.einsum("bhqk,bqhd->bkhd", p_drop.to(dt).float(), gh) * inv
@@ -575,3 +579,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def dropout_keep_mask(seed: int, b: int, h: int, lq: int, lk: int,
+                      rate: float, lk_padded: Optional[int] = None,
+                      device="cpu") -> torch.Tensor:
+    """Bool keep mask [b, h, lq, lk] of the portable stream (JAX
+    `dropout_keep_mask(..., interpret=True)`), made on `device`: the CPU
+    takes `dropout_keep_mask_reference`; a CUDA device launches the Hopper
+    kernel (csrc/dropout_keep_mask.cu), which writes the same bits, or
+    raises.  The short attentions' weight dropout draws it in every
+    training forward (models/layers._dot_product_attention)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return dropout_keep_mask_reference(seed, b, h, lq, lk, rate,
+                                           lk_padded=lk_padded, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    lk_p = lk_padded or _lk_padded(lk)
+    out = torch.empty((b, h, lq, lk), dtype=torch.bool, device=device)
+    if out.numel() == 0:
+        return out
+    fn = _bind("dropout_keep_mask", "mmoe_dropout_keep_mask",
+               [_P, ctypes.c_longlong, _I, _I, _U, _U, _P])
+    with torch.cuda.device(device):
+        err = fn(out.data_ptr(), b * h * lq, lk, lk_p, seed & _M32,
+                 _threshold(rate), _stream(device))
+    if err:
+        raise RuntimeError(f"dropout_keep_mask launch failed: CUDA error "
+                           f"{err}")
+    dropout_keep_mask.launches += 1
+    return out
+
+
+dropout_keep_mask.launches = 0

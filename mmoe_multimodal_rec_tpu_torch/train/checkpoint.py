@@ -16,7 +16,10 @@ fast-forwards host_step * grad_accum batches on restore.
 Files are written to a temporary name and renamed, so a crash never leaves
 a torn checkpoint; `max_to_keep` bounds the payloads kept.  Loading uses
 `torch.load(weights_only=True)`, which unpickles tensors and plain
-containers only.
+containers only.  `restore` resumes a Trainer; `restore_model` loads the
+weights and BatchNorm statistics into a bare model for eval and serving,
+with no optimizer.  A directory the JAX trainer wrote (orbax) is refused
+with `check_not_orbax`: reading orbax without orbax needs a design first.
 """
 from __future__ import annotations
 
@@ -29,6 +32,22 @@ from typing import Dict, List, Optional
 import torch
 
 _PAYLOAD = re.compile(r"^ckpt_(\d+)\.pt$")
+
+
+def check_not_orbax(directory: str) -> None:
+    """Raise if `directory` holds the JAX trainer's orbax checkpoints (step
+    subdirectories, `frozen_once/`), which the port cannot read yet."""
+    if not os.path.isdir(directory):
+        return
+    entries = [e for e in os.listdir(directory)
+               if os.path.isdir(os.path.join(directory, e))]
+    if any(e.isdigit() or e == "frozen_once" for e in entries):
+        raise NotImplementedError(
+            f"{directory!r} holds orbax checkpoints of the JAX trainer; the "
+            "port reads its own torch checkpoints only.  Reading orbax "
+            "without orbax or tensorstore needs a design first (a converter "
+            "run beside the JAX package, or a reader of orbax's on-disk "
+            "format).")
 
 
 def frozen_fingerprint(frozen: Dict[str, torch.Tensor]) -> str:
@@ -135,3 +154,27 @@ class CheckpointManager:
                   if os.path.exists(self._frozen_path) else None)
         trainer.load_state_dict(payload, frozen)
         return payload.get("extra", {})
+
+    def restore_model(self, model: torch.nn.Module,
+                      step: Optional[int] = None) -> Optional[int]:
+        """Load checkpoint `step` (default: the latest) into a bare model:
+        the trainable parameters, the buffers (HoME's BatchNorm statistics)
+        and frozen_once.pt; no optimizer.  Strict: every parameter and
+        buffer of the model must be there with its shape, and nothing else.
+        Returns the optimizer steps the checkpoint had taken, or None when
+        the directory holds no checkpoint."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None
+        payload = _load(self._path(step))
+        state = {**payload["trainable"], **payload.get("batch_stats", {})}
+        if os.path.exists(self._frozen_path):
+            state.update(_load(self._frozen_path))
+        own = model.state_dict()
+        missing = sorted(set(own) - set(state))
+        unused = sorted(set(state) - set(own))
+        if missing or unused:
+            raise KeyError(f"checkpoint {self._path(step)!r} does not match "
+                           f"the model: missing {missing}, unused {unused}")
+        model.load_state_dict(state, strict=True)
+        return int(payload["scheduler"]["last_epoch"])

@@ -13,14 +13,17 @@ Port of mmoe_multimodal_rec_tpu/train/loop.py, on one device:
   device ahead of the step (data/loader.device_prefetch), logs to
   output_dir/metrics.jsonl every `log_every` steps, writes checkpoints per
   epoch and every `checkpoint_every` steps with the exact resume position,
-  and on SIGTERM saves and returns (train/preemption.py).
+  and on SIGTERM saves and returns (train/preemption.py);
+- `train.eval_every` evaluates the model on data.valid_pattern every that
+  many optimizer steps (at most `train.eval_max_batches` batches) and logs
+  eval_auc_good, eval_auc_best and eval_n.
 Not ported yet: the loss-curve PNGs (utils/plotting.py), train.profile,
-train.eval_every, multi-GPU.
+multi-GPU.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Iterator, List, Mapping, Optional
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -166,11 +169,14 @@ class Trainer:
             logger: Optional[MetricsLogger] = None,
             ckpt: Optional[CheckpointManager] = None,
             start_epoch: int = 0, start_opt_step: int = 0,
-            preempt: Optional[PreemptionGuard] = None) -> Dict[str, Any]:
+            preempt: Optional[PreemptionGuard] = None,
+            eval_fn: Optional[Callable[["Trainer"], Dict]] = None
+            ) -> Dict[str, Any]:
+        """eval_fn(trainer) -> {'good', 'best', 'n'}: run every
+        train.eval_every optimizer steps when given."""
         cfg = self.cfg
-        if cfg.train.profile or cfg.train.eval_every:
-            raise NotImplementedError("train.profile and train.eval_every "
-                                      "are not yet ported")
+        if cfg.train.profile:
+            raise NotImplementedError("train.profile is not yet ported")
         epochs = epochs if epochs is not None else cfg.train.epochs
         accum = cfg.train.optim.grad_accum
         micro_steps = steps_per_epoch if steps_per_epoch is not None else (
@@ -234,6 +240,13 @@ class Trainer:
                         (opt_step + 1) % cfg.train.checkpoint_every == 0:
                     ckpt.save(self.host_step, self,
                               extra=self._resume_extra(epoch, opt_step + 1))
+                if cfg.train.eval_every and eval_fn is not None and \
+                        (opt_step + 1) % cfg.train.eval_every == 0:
+                    r = eval_fn(self)
+                    logger.log({"epoch": epoch, "step": self.host_step,
+                                "eval_auc_good": r["good"],
+                                "eval_auc_best": r["best"],
+                                "eval_n": r["n"]})
             if preempted:
                 break
             if ep_n:
@@ -262,8 +275,26 @@ def train_from_config(cfg: Config, device="cuda") -> Dict[str, Any]:
     if not shards:
         raise FileNotFoundError(
             f"no shards match {cfg.data.train_pattern!r}")
+    eval_shards = None
+    if cfg.train.eval_every and cfg.data.valid_pattern:
+        eval_shards = fs_glob(cfg.data.valid_pattern)
+        if not eval_shards:
+            # fail at startup, not eval_every optimizer steps into the run
+            raise FileNotFoundError(
+                f"train.eval_every is set but no shards match "
+                f"data.valid_pattern={cfg.data.valid_pattern!r}")
     packer = packer_from_config(cfg)
     trainer = Trainer(cfg, device=device)
+    eval_fn = None
+    if eval_shards:
+        from ..eval.evaluate import evaluate
+        from .step import make_eval_step
+        eval_step = make_eval_step(cfg, trainer.model)
+
+        def eval_fn(t: Trainer) -> Dict:
+            return evaluate(cfg, t.model, eval_shards, packer=packer,
+                            eval_step=eval_step,
+                            max_batches=cfg.train.eval_max_batches or None)
     ckpt = CheckpointManager(cfg.train.checkpoint_dir)
     start_epoch, start_opt_step = 0, 0
     if cfg.train.resume:
@@ -289,7 +320,7 @@ def train_from_config(cfg: Config, device="cuda") -> Dict[str, Any]:
             result = trainer.fit(iter(loader), ckpt=ckpt,
                                  start_epoch=start_epoch,
                                  start_opt_step=start_opt_step,
-                                 preempt=guard)
+                                 preempt=guard, eval_fn=eval_fn)
         if result["preempted"]:
             print(f"[preempt] SIGTERM: checkpointed at host_step="
                   f"{trainer.host_step}; rerun with --train.resume=true "

@@ -1,8 +1,9 @@
-"""One optimizer step over `grad_accum` micro-batches.
+"""The train, eval and BatchNorm-recalibration steps.
 
-Port of mmoe_multimodal_rec_tpu/train/step.py `make_train_step`.  PyTorch
-runs eagerly, so the JAX step's `lax.scan` is a Python loop over the
-micro-batches; the semantics are the same:
+Port of mmoe_multimodal_rec_tpu/train/step.py.  `make_train_step`: one
+optimizer step over `grad_accum` micro-batches.  PyTorch runs eagerly, so
+the JAX step's `lax.scan` is a Python loop over the micro-batches; the
+semantics are the same:
 - each micro-batch's gradients are added only if its loss is finite (the
   test runs on the card, `torch.where`, no host sync), and the NaN ones
   are counted in `skipped_micro`;
@@ -16,6 +17,10 @@ micro-batches; the semantics are the same:
 - when every micro-batch was bad, neither the optimizer nor its schedule
   steps, as JAX keeps `opt_state` and `state.step` then.  Telling that
   apart is the step's one host sync.
+`make_eval_step`: the deterministic forward to probabilities, with LoRA
+unmerged, as JAX's.  `make_bn_recalibration_step`: the same forward with
+HoME's BatchNorms on batch statistics, moving only their running
+statistics.
 """
 from __future__ import annotations
 
@@ -86,3 +91,38 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
                 "skipped_micro": accum - n}
 
     return train_step
+
+
+def make_eval_step(cfg: Config, model: torch.nn.Module
+                   ) -> Callable[[Dict[str, torch.Tensor]],
+                                 Dict[str, torch.Tensor]]:
+    """Deterministic forward -> sigmoid probabilities (ref
+    inference_and_auc.py:130-156); the labels and the eval loader's
+    `valid` mask pass through.  The batch lies on the model's device."""
+
+    @torch.inference_mode()
+    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        out = model(batch, deterministic=True)
+        return {"prob_good": torch.sigmoid(out.logit_good),
+                "prob_best": torch.sigmoid(out.logit_best),
+                "label_good": batch["label_good"],
+                "label_best": batch["label_best"],
+                "valid": batch["valid"]}
+
+    return eval_step
+
+
+def make_bn_recalibration_step(cfg: Config, model: torch.nn.Module
+                               ) -> Callable[[Dict[str, torch.Tensor]],
+                                             Dict[str, torch.Tensor]]:
+    """Full forward with ONLY the BatchNorm running statistics updating
+    (weights untouched, dropout off) == recalibrate_bn (ref
+    infer_auc_HoME:64-125).  The statistics move in place; the step returns
+    the model's buffers by name."""
+
+    @torch.no_grad()
+    def recal_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model(batch, deterministic=True, bn_use_running_average=False)
+        return dict(model.named_buffers())
+
+    return recal_step

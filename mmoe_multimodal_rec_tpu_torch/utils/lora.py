@@ -47,6 +47,34 @@ def merge_lora(flat: Mapping[str, np.ndarray], alpha: float
     return out
 
 
+def merge_lora_state(state: Mapping[str, "torch.Tensor"], alpha: float
+                     ) -> dict:
+    """New state_dict with every LoRADense `<p>.{base.weight, base.bias,
+    lora_a, lora_b}` collapsed to the Dense `<p>.{weight, bias}`, weight =
+    base + (alpha/r) (A B)^T, merged in fp32 and cast back to the base
+    weight's dtype."""
+    out = {}
+    n_merged = 0
+    for key, v in state.items():
+        parent, _, leaf = key.rpartition(".")
+        if leaf == "lora_a":
+            a, b = v.float(), state[parent + ".lora_b"].float()
+            base = state[parent + ".base.weight"]
+            merged = base.float() + (alpha / a.shape[-1]) * (a @ b).t()
+            out[parent + ".weight"] = merged.to(base.dtype)
+            out[parent + ".bias"] = state[parent + ".base.bias"]
+            n_merged += 1
+        elif leaf == "lora_b" or (parent.endswith(".base") and
+                                  parent[:-5] + ".lora_a" in state):
+            continue  # folded above
+        else:
+            out[key] = v
+    if n_merged == 0:
+        raise ValueError("no LoRA factors found in the state_dict (already "
+                         "merged, or lora_rank == 0?)")
+    return out
+
+
 def merged_model_config(model_cfg):
     """Copy of the model config whose layout matches a merged mapping (text
     lora_rank = 0, which also unlocks the packed-qkv kernel path)."""

@@ -60,8 +60,9 @@ def test_packed_kernel_matches_plain_version(dtype, l, dh, masked, rate, tol):
 def test_packed_kernel_dropout_mask_is_the_jax_stream(dtype):
     """With q = k = 0 every key weighs 1/L, and with v[key j] = e_j the
     output reads back the keep mask itself: out[b, q, h*dh + j] =
-    keep[b, h, q, j] / (L (1 - rate)).  It must equal dropout_keep_mask
-    (bit-identical to JAX's interpret-mode stream) at every position."""
+    keep[b, h, q, j] / (L (1 - rate)).  It must equal
+    dropout_keep_mask_reference (bit-identical to JAX's interpret-mode
+    stream) at every position."""
     _need_card()
     b, l, dh, heads, rate, seed = 2, 128, 128, 6, 0.3, 12345
     d = heads * dh
@@ -72,7 +73,8 @@ def test_packed_kernel_dropout_mask_is_the_jax_stream(dtype):
                                      heads, rate)
     got = out.float().reshape(b, l, heads, dh).permute(0, 2, 1, 3)
     got = got * (l * (1.0 - rate)) > 0.5
-    want = tfa.dropout_keep_mask(seed, b, heads, l, l, rate, device="cuda")
+    want = tfa.dropout_keep_mask_reference(seed, b, heads, l, l, rate,
+                                          device="cuda")
     assert torch.equal(got, want)
 
 
@@ -159,13 +161,15 @@ def test_split_kernels_dropout_mask_is_the_jax_stream(dtype):
     the keep mask out as out[b, q, h*dh + j] = keep[b, h, q, j] / (L (1-r)).
     Backward: dO[q] = e_q reads it out of dv as
     dv[b, key, h*dh + q] = keep[b, h, q, key] / (L (1-r)).  Both must equal
-    dropout_keep_mask (bit-identical to JAX's interpret-mode stream)."""
+    dropout_keep_mask_reference (bit-identical to JAX's interpret-mode
+    stream)."""
     _need_card()
     b, l, dh, heads, rate, seed = 2, 128, 128, 6, 0.3, 2024
     dt = getattr(torch, dtype)
     z = torch.zeros(b, l, heads * dh, device="cuda", dtype=dt)
     eye = torch.eye(l, dh, device="cuda").repeat(b, 1, heads).to(dt)
-    want = tfa.dropout_keep_mask(seed, b, heads, l, l, rate, device="cuda")
+    want = tfa.dropout_keep_mask_reference(seed, b, heads, l, l, rate,
+                                          device="cuda")
     vv = eye.clone().requires_grad_()
     out = tfa.flash_attention(z, z, vv, None, seed, heads, rate)
     got = out.float().reshape(b, l, heads, dh).permute(0, 2, 1, 3)
@@ -378,7 +382,8 @@ def test_packed_backward_matches_plain_version(l, dh, masked, rate):
 def test_packed_backward_dropout_mask_is_the_jax_stream():
     """With q = k = 0 every key weighs 1/L, and with dO[q] = e_q the v
     columns of dqkv read back the keep mask: dv[b, key, h*dh + q] =
-    keep[b, h, q, key] / (L (1-r)), equal to dropout_keep_mask."""
+    keep[b, h, q, key] / (L (1-r)), equal to
+    dropout_keep_mask_reference."""
     _need_card()
     b, l, dh, heads, rate, seed = 2, 128, 128, 6, 0.3, 31337
     z = torch.zeros(b, l, heads * dh, device="cuda", dtype=torch.bfloat16)
@@ -389,7 +394,8 @@ def test_packed_backward_dropout_mask_is_the_jax_stream():
                                rate).backward(eye)
     dv = leaf.grad.reshape(b, l, 3, heads * dh)[:, :, 2]
     dv = dv.float().reshape(b, l, heads, dh).permute(0, 2, 3, 1)
-    want = tfa.dropout_keep_mask(seed, b, heads, l, l, rate, device="cuda")
+    want = tfa.dropout_keep_mask_reference(seed, b, heads, l, l, rate,
+                                          device="cuda")
     assert torch.equal(dv * (l * (1.0 - rate)) > 0.5, want)
 
 
@@ -439,3 +445,60 @@ def test_small_fp32_training_step_card_equals_cpu():
     for k, p in want.trainable.items():
         err = (got.trainable[k].detach().cpu() - p.detach()).abs().max()
         assert err.item() <= 1e-5, k
+
+
+# (b, h, lq, lk, lk_padded): the short attentions' shapes on the main path
+# (the sentence cross expert, the fuse experts), the text mask read-back
+# shape, an lk that is not a multiple of 16 (byte stores), and an explicit
+# counter stride
+KEEP_MASK_CASES = [(64, 8, 64, 64, None), (64, 8, 2, 2, None),
+                   (4, 12, 384, 384, None), (3, 5, 7, 37, None),
+                   (2, 4, 64, 64, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk,lk_padded", KEEP_MASK_CASES)
+@pytest.mark.parametrize("seed,rate", [(987654321, 0.1), (-5, 0.5)])
+def test_keep_mask_kernel_equals_the_plain_version(b, h, lq, lk, lk_padded,
+                                                   seed, rate):
+    """dropout_keep_mask's kernel (#8) against dropout_keep_mask_reference
+    on the same device, bit for bit, and one launch a call."""
+    _need_card()
+    before = tfa.dropout_keep_mask.launches
+    got = tfa.dropout_keep_mask(seed, b, h, lq, lk, rate, lk_padded,
+                                device="cuda")
+    torch.cuda.synchronize()
+    assert tfa.dropout_keep_mask.launches == before + 1
+    want = tfa.dropout_keep_mask_reference(seed, b, h, lq, lk, rate,
+                                           lk_padded, device="cuda")
+    assert got.dtype == torch.bool and got.shape == (b, h, lq, lk)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_short_attention_dropout_takes_the_keep_mask_kernel(monkeypatch):
+    """A training forward of the einsum attention (L = 64, dh 96: no
+    attention kernel takes it) on the card draws its mask through #8, never
+    through the plain version, and equals the same layer on the CPU."""
+    _need_card()
+    from mmoe_multimodal_rec_tpu_torch.models import layers
+    plain_calls = []
+    reference = tfa.dropout_keep_mask_reference
+    monkeypatch.setattr(tfa, "dropout_keep_mask_reference",
+                        lambda *a, **k: plain_calls.append(
+                            torch.device(k["device"]).type)
+                        or reference(*a, **k))
+    outs = []
+    for device in ("cuda", "cpu"):
+        attn = layers.Attention(768, 8, dropout=0.1)
+        layers.init_weights(attn, torch.Generator().manual_seed(0))
+        attn.to(device)
+        x = torch.randn(4, 64, 768, generator=torch.Generator()
+                        .manual_seed(1)).to(device)
+        before = tfa.dropout_keep_mask.launches
+        outs.append(attn(x, x, x, None, deterministic=False,
+                         rng=torch.Generator().manual_seed(2)).cpu())
+        assert tfa.dropout_keep_mask.launches - before == (
+            1 if device == "cuda" else 0)
+    assert plain_calls == ["cpu"]
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-4

@@ -105,6 +105,18 @@ def test_keep_mask_counter_layout(seed, lq, lk, rate):
     np.testing.assert_array_equal(keep_t, keep_j)
 
 
+def test_keep_mask_wrapper_on_cpu_is_the_plain_version():
+    """A CPU device takes dropout_keep_mask_reference and counts no launch;
+    a device with no kernel raises."""
+    before = tfa.dropout_keep_mask.launches
+    got = tfa.dropout_keep_mask(7, 2, H, 64, 64, 0.1)
+    assert tfa.dropout_keep_mask.launches == before
+    assert torch.equal(got, tfa.dropout_keep_mask_reference(7, 2, H, 64, 64,
+                                                            0.1))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tfa.dropout_keep_mask(7, 2, H, 64, 64, 0.1, device="meta")
+
+
 def test_pack_qkv_weights_exact():
     rng = np.random.default_rng(5)
     for hb in (1, 2, 4):
@@ -159,7 +171,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 def test_library_path_tracks_source():
     for name in ("flash_attention_fwd", "flash_attention_bwd",
-                 "lora_dropout"):
+                 "lora_dropout", "dropout_keep_mask"):
         a = cuda_lib.library_path(name)
         assert a.name.startswith(f"lib{name}-")
         assert a.parent == cuda_lib.BUILD_DIR

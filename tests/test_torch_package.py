@@ -53,7 +53,8 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert res["bad"] == []
     for mod in ("ops.flash_attention", "ops.cuda_lib", "ops.lora_dropout",
                 "models.mmoe", "models.home",
-                "eval.predict", "eval.server", "utils.convert", "cli",
+                "eval.predict", "eval.server", "eval.auc", "eval.evaluate",
+                "utils.convert", "utils.hf_convert", "cli",
                 "train.losses", "train.optimizer", "train.step", "train.loop",
                 "train.checkpoint", "train.preemption", "utils.metrics",
                 "data.decode", "data.io", "data.tar_io", "data.synthetic",
@@ -64,16 +65,29 @@ print(json.dumps({"modules": names, "bad": bad}))
         assert not _FORBIDDEN.search(path.read_text()), path
 
 
-def test_cli_usage_and_unported_options(capsys):
+def test_cli_usage_and_unported_options(capsys, tmp_path):
+    """Usage; what is not ported raises; a checkpoint that is not there
+    raises before a model is built, and an orbax directory of the JAX
+    trainer is refused with the design it waits for."""
     assert cli.main([]) == 2
     assert cli.main(["--help"]) == 0
     assert cli.main(["no-such-command"]) == 2
     usage = capsys.readouterr().out
-    assert all(c in usage for c in ("synth", "train", "serve"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["serve", "--checkpoint=/nowhere", "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["serve", "--reference-ckpt=/nowhere.pt", "--device=cpu"])
+    assert all(c in usage for c in ("synth", "train", "eval", "serve"))
+    for command in ("serve", "eval"):
+        with pytest.raises(FileNotFoundError, match="--checkpoint"):
+            cli.main([command, "--checkpoint=/nowhere", "--device=cpu"])
+        with pytest.raises(FileNotFoundError, match="--reference-ckpt"):
+            cli.main([command, "--reference-ckpt=/nowhere.pt",
+                      "--device=cpu"])
+    (tmp_path / "orbax" / "frozen_once").mkdir(parents=True)
+    (tmp_path / "orbax" / "4").mkdir()
+    with pytest.raises(NotImplementedError, match="orbax.*needs a design"):
+        cli.main(["eval", f"--checkpoint={tmp_path / 'orbax'}",
+                  "--device=cpu"])
+    with pytest.raises(NotImplementedError, match="orbax"):
+        cli.main(["serve", "--device=cpu",
+                  f"--train.checkpoint_dir={tmp_path / 'orbax'}"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["train", "--multihost", "--device=cpu"])
 
@@ -87,11 +101,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from mmoe_multimodal_rec_tpu_torch.eval.predict import Predictor
     from mmoe_multimodal_rec_tpu_torch.train.loop import (Trainer,
                                                           train_from_config)
-    for fn in (Trainer.__init__, Predictor.__init__, train_from_config):
+    for fn in (Trainer.__init__, Predictor.__init__, train_from_config,
+               cli._inference_model):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(tiny_config())
+    for command in ("eval", "serve"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([command])
 
 
 def test_serve_entry_point_answers_and_stops(tmp_path):

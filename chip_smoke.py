@@ -17,10 +17,14 @@ exits non-zero without the final result line:
      beside the bound computed from the inputs, per call and for one
      forward's (one training step's) worth of calls timed back to back; the
      training kernels' dropout masks read back through them.  Phases
-     kernel_check / split_kernel_check for #1-#3, lora_kernels for the
-     fused LoRA dropout #4-#6 (M = 49152, D = 768, r = 8, rate 0.1; the mask
-     read back through #6 in every entry) and packed_bwd_kernel for #7
-     (ViT B = 64, L = 197; and B = 128, L = 384 masked at rate 0.1);
+     kernel_check / split_kernel_check for #1-#3 (#2 and #3 at the text
+     shape timed at rates 0.1 and 0), lora_kernels for the fused LoRA
+     dropout #4-#6 (M = 49152, D = 768, r = 8, rate 0.1; the mask read back
+     through #6 in every entry) and packed_bwd_kernel for #7 (ViT B = 64,
+     L = 197; and B = 128, L = 384 masked at rate 0.1).  Two backward calls
+     on the same inputs must give the same gradients bit for bit (#3, #7),
+     and each timed backward also runs back to back for a second while
+     nvidia-smi samples the SM clock and the power draw;
   4. predictor: the full-width Predictor (batch 64, 2 chunks per sample,
      BERT-base x2 + ViT-base, bf16 compute, seeded init weights) scores a
      few batches on the host clock (and, apart, the host packing of their
@@ -70,9 +74,11 @@ exits non-zero without the final result line:
      CPU.
 Then one JSON line of kernel records, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Needs one card; exits non-zero
-without one, and outside a checkout of the repository.  Checkpoints and
-shards go to the git-ignored _smoke_work/ of the checkout, removed at the
-end.
+without one.  It drives the checkout it sits in, or else the one it is run
+from (python3 /elsewhere/chip_smoke.py from a checkout's root), and exits
+non-zero, printing no result, when neither holds the port's package.
+Checkpoints and shards go to the git-ignored _smoke_work/ of that
+checkout, removed at the end.
 """
 from __future__ import annotations
 
@@ -168,8 +174,21 @@ CLI_AUC_TOL = 1e-3
 # small fp32 HoME: recalibrated statistics, card against CPU, of each
 # tensor's largest value (fp32 sums in another order through 2 layers)
 SMALL_STATS_TOL = 1e-4
-REPO = os.path.dirname(os.path.abspath(__file__))
-WORK = os.path.join(REPO, "_smoke_work")
+PACKAGE = "mmoe_multimodal_rec_tpu_torch"
+
+
+def find_checkout():
+    """The checkout this run drives: the script's own directory when it
+    holds the port's package, else the working directory when that does (a
+    copy of the script run from the root of a checkout); None otherwise."""
+    for d in (os.path.dirname(os.path.abspath(__file__)), os.getcwd()):
+        if os.path.isdir(os.path.join(d, PACKAGE)):
+            return d
+    return None
+
+
+REPO = find_checkout()
+WORK = os.path.join(REPO, "_smoke_work") if REPO else None
 
 
 def log(phase: str, **fields) -> None:
@@ -186,6 +205,39 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def sustained(fn, seconds: float = 1.0) -> dict:
+    """fn() back to back for about `seconds` while nvidia-smi samples the SM
+    clock (MHz) and the power draw (W) every 100 ms: ms per call over the
+    window (CUDA events) and each sample's min, median and max, to read a
+    kernel's time beside the clocks it ran at."""
+    import torch
+    per_call = cuda_ms(fn, iters=5, warmup=2)
+    iters = max(5, int(1e3 * seconds / max(per_call, 1e-3)))
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        # a third of the window under load while nvidia-smi starts
+        ms = cuda_ms(fn, iters=iters, warmup=iters // 3)
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    samples = []
+    for line in out.splitlines():
+        try:
+            samples.append([float(x) for x in line.split(",")])
+        except ValueError:
+            continue
+    rec = {"ms": ms, "calls": iters, "smi_samples": len(samples)}
+    for i, key in enumerate(("sm_clock_mhz", "power_w")):
+        vals = sorted(s[i] for s in samples if len(s) == 2)
+        if vals:
+            rec[key] = [vals[0], vals[len(vals) // 2], vals[-1]]
+    torch.cuda.synchronize()
+    return rec
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -318,7 +370,12 @@ def split_case(name, b, l, heads, dh, rate, gen, timed=True):
     bwd = lambda: fa.flash_attention_bwd(q, k, v, pad, seed, g, heads, rate,
                                          stats)
     grads = bwd()
+    again = bwd()
     torch.cuda.synchronize()
+    # the same inputs twice: the same gradients bit for bit
+    check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+          f"{name}: two backward calls on the same inputs differ")
+    del again
     ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), pad,
                                        seed, heads, rate)
     fwd_err = (out.float() - ref).abs().max().item()
@@ -338,6 +395,7 @@ def split_case(name, b, l, heads, dh, rate, gen, timed=True):
            "rate": rate, "fwd_max_abs_err": fwd_err,
            "bwd_max_abs_err": max(bwd_abs),
            "bwd_max_err_of_largest_grad": bwd_err,
+           "bwd_bitwise_deterministic": True,
            "tol": [KERNEL_TOL, BWD_TOL]}
     fns = None
     if timed:
@@ -379,6 +437,7 @@ def split_case(name, b, l, heads, dh, rate, gen, timed=True):
             bwd_ms=cuda_ms(bwd), bwd_plain_ms=cuda_ms(plain_bwd, 2, 1),
             bwd_library_ms=cuda_ms(lib_fwd_bwd) - lib_f,
             bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
+            bwd_sustained=sustained(bwd),
             fwd_io_bytes=fwd_bytes, bwd_io_bytes=bwd_bytes,
             fwd_flops=fwd_flops, bwd_flops=bwd_flops)
         fns = {"fwd": (fwd, plain_fwd, lib_fwd),
@@ -430,7 +489,7 @@ def phase_split_kernels():
     main, fns = split_case("text_dropout_0.1", TEXT["b"], TEXT["l"],
                            TEXT["heads"], TEXT["dh"], 0.1, gen)
     rate0, _ = split_case("text_rate_0", TEXT["b"], TEXT["l"], TEXT["heads"],
-                          TEXT["dh"], 0.0, gen, timed=False)
+                          TEXT["dh"], 0.0, gen)
     n_mask = mask_read_back(4, TEXT["l"], TEXT["heads"], TEXT["dh"], 0.1, 99)
     log("split_mask_read_back", elements=n_mask, equal=True)
 
@@ -570,6 +629,8 @@ def packed_bwd_case(name, b, l, heads, dh, hb, masked, rate, gen,
     kernel = lambda: fa.flash_attention_packed_bwd(qkv, pad, seed, g, heads,
                                                    hb, rate, stats)
     got = kernel()
+    check(torch.equal(got, kernel()),
+          f"{name}: two backward calls on the same inputs differ")
     torch.cuda.synchronize()
     want = fa.flash_attention_packed_bwd_reference(qkv, pad, seed, g, heads,
                                                    hb, rate)
@@ -579,7 +640,8 @@ def packed_bwd_case(name, b, l, heads, dh, hb, masked, rate, gen,
           f"{name}: packed backward vs plain max rel err {rel} > {BWD_TOL}")
     rec = {"case": name, "b": b, "l": l, "heads": heads, "dh": dh,
            "masked": masked, "rate": rate, "max_abs_err": err,
-           "max_err_of_largest_grad": rel, "tol": BWD_TOL}
+           "max_err_of_largest_grad": rel, "bitwise_deterministic": True,
+           "tol": BWD_TOL}
     del got, want
     fns = None
     if timed:
@@ -603,6 +665,7 @@ def packed_bwd_case(name, b, l, heads, dh, hb, masked, rate, gen,
         lib_f = cuda_ms(lib_fwd)
         rec.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, 2, 1),
                    library_ms=cuda_ms(lib_fwd_bwd) - lib_f,
+                   sustained=sustained(kernel),
                    bound_ms=bound_ms, bound_by=bound_by, io_bytes=nbytes,
                    flops=flops,
                    fwd_serving_ms=cuda_ms(lambda: fa.flash_attention_packed(
@@ -1678,6 +1741,29 @@ def ptxas_report(log_text: str):
     return out
 
 
+def check_bwd_spills(log_text: str):
+    """The attention backward's main-path instantiations (bf16, dh 64: the
+    split #3 and the packed #7, dq and dk/dv each) spill nothing: their
+    register budgets (128 and 168, for 4 and 3 blocks an SM) set their
+    speed, and a change that outgrows one shows up as spilled bytes."""
+    spills, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name and re.search(r"attention_bwd_(dq|dkdv)_bf16ILi64E",
+                                    name):
+            spills[name] = int(m.group(1)) + int(m.group(2))
+    check(len(spills) == 4, f"ptxas reported {len(spills)} of the 4 dh-64 "
+          "bf16 backward kernels")
+    check(not any(spills.values()),
+          f"dh-64 bf16 backward kernels spill: {spills}")
+    return spills
+
+
 def build_all(names):
     """One nvcc per source, all started together."""
     from mmoe_multimodal_rec_tpu_torch.ops import cuda_lib
@@ -1686,12 +1772,20 @@ def build_all(names):
         libs = dict(zip(names, pool.map(cuda_lib.build, names)))
     seconds = time.perf_counter() - t0
     for name, lib in libs.items():
+        text = lib.with_name(lib.name + ".log").read_text()
+        extra = ({"spill_bytes_dh64": check_bwd_spills(text)}
+                 if name == "flash_attention_bwd" else {})
         log("build", source=f"csrc/{name}.cu", seconds=seconds,
-            library=lib.name, ptxas=ptxas_report(
-                lib.with_name(lib.name + ".log").read_text()))
+            library=lib.name, ptxas=ptxas_report(text), **extra)
 
 
 def main() -> int:
+    if REPO is None:
+        print(f"chip_smoke: neither the script's directory nor the working "
+              f"directory holds {PACKAGE}/: run it from a checkout",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1777,7 +1871,10 @@ def main() -> int:
             "bound_ms": step["bound_ms"],
             "bound_by": split[f"{side}_bound_by"],
             "per_call": {k[len(side) + 1:]: v for k, v in split.items()
-                         if k.startswith(side + "_")}})
+                         if k.startswith(side + "_")},
+            "per_call_rate_0": {k[len(side) + 1:]: v
+                                for k, v in split0.items()
+                                if k.startswith(side + "_")}})
     for wrapper, line in (("lora_dropout_fwd", 170), ("lora_dropout_da", 199),
                           ("lora_dropout_dh", 232)):
         rec, step = lora[wrapper], lora_step[wrapper]

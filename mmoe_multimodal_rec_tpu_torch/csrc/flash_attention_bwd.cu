@@ -31,31 +31,51 @@
 //   dp   = keep * (dO v^T)
 //   ds   = p * (dp - delta) * scale / (1 - r),  cast to the input dtype
 //   dq   = ds k,   dk = ds^T q,
-// with delta = rowsum(dp * p) in fp32, as JAX takes it.  FlashAttention-2's
+// with delta = rowsum(dp * p) in fp32, as JAX takes it, summed from the p
+// and dp rebuilt here, so it stays the exact row sum.  FlashAttention-2's
 // cheaper equal form (1 - r) * rowsum(dO * O) rounds through the stored O:
 // in bf16, a row whose weight sits on one key (p = 1) then leaves ds a bf16
 // ulp of dO*v away from 0 in every row, and dk of that key sums it over all
 // L rows (5% of the largest dk measured on the card at L = 128, rate 0.1).
 //
-// Bound on this card (text B=128, L=384, D=768, bf16): it must read q, k,
-// v, dO and the statistics and write dq, dk, dv, about 535 MB, 0.16 ms
-// at 3.35 TB/s, against 10*B*L^2*D = 145 GFLOP, 0.15 ms at 989 TFLOP/s: it
-// is close to balanced.  The design is FlashAttention-2's, deterministic:
-// - `dq`: one block of 4 warps per (64 q rows, head, batch row); warp w
-//   owns 16 rows and computes S = Q K^T and dP = dO V^T on the tensor cores
-//   (mma.sync m16n8k16, bf16 in, fp32 accumulate) with its q/dO fragments,
-//   the scores and the dQ accumulator in registers, as the forward does.
-//   It walks the key tiles twice (two cp.async stages): first for delta,
-//   written out for the next kernel, then for ds and dQ += ds K;
-// - `dkdv`: one block of 4 warps per (64 keys, head, batch row); warp w
-//   owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T, so p*keep and
-//   ds come out in the A-operand layout of dV += (p*keep)^T dO and
-//   dK += ds^T Q with no transpose; the q/dO tiles stream through two
-//   cp.async stages.
-// Two passes instead of fp32 atomics, and every sum in a fixed order, so
-// every gradient is the same from run to run.  Both passes rebuild S and
-// dP (the dq pass twice), so the card does 18*B*L^2*D operations for the
-// 10 the algorithm needs; one fused pass, wgmma and TMA are later work.
+// What bounds it on this card (text B=128, L=384, D=768, H=12, bf16): not
+// the bytes (q, k, v, dO and the statistics in, dq, dk, dv out: 533 MB,
+// 0.16 ms at 3.35 TB/s) nor the operations (the algorithm's 10*B*L^2*D =
+// 145 GFLOP, 0.15 ms at 989 TFLOP/s), nine times below its time, but
+// latency: each 64 x 64 tile step is a chain of dependent waits (the
+// tile's copies, a wgmma group, ~30 scalar instructions a score element for
+// exp2f, the dropout hash and ds, a second wgmma group) that only other
+// blocks hide, so the time follows the warps an SM keeps in flight: dq
+// keeps 16 (four one-warpgroup blocks at 128 registers), dkdv 12 (three at
+// 168).  Designs that did less work with fewer warps in flight measured
+// slower (PERF.md): a thread-block cluster per (b, h) (14 or 10
+// units, one hash) and one block per (b, h) kept 8 warps an SM; storing
+// keep bits for a later walk cost registers and spilled.  The 128-byte
+// swizzle decided wgmma: on the unswizzled core-matrix layout the same
+// products were 9-20% slower than mma.sync, swizzled 7-11% faster.
+//
+// The design is FlashAttention-2's, deterministic, in two launches; every
+// product is a wgmma of the block's one warpgroup (m64n64k16 or m64n128k16,
+// bf16 in, fp32 accumulate), tiles in shared memory in the 128-byte swizzle:
+// - `dq`: one block per (64 q rows, head, batch row), q and dO resident;
+//   S = Q K^T and dP = dO V^T take both operands from shared memory, and
+//   warp w holds rows [16w, 16w + 16) of each in registers.  It walks the
+//   key tiles twice (two cp.async stages): first for delta, written out for
+//   the next kernel, then for ds and dQ += ds K, ds the A operand from
+//   registers (the accumulator's layout is the A operand's);
+// - `dkdv`: one block per (64 keys, head, batch row), k and v resident; it
+//   forms S^T = K Q^T and dP^T = V dO^T, so p*keep and ds come out as the
+//   register A operands of dV += (p*keep)^T dO and dK += ds^T Q with no
+//   transpose; the q/dO tiles stream through two cp.async stages.
+// Work: S and dP three times (dq twice, dkdv once), dQ, dK, dV: 18*B*L^2*D
+// operations for the algorithm's 10; three exp2f and three hashes a score
+// element.  Every sum is in a fixed order, with no atomics, so every
+// gradient is the same from run to run: delta, each lane over its 16 keys
+// a tile, tile by tile, then over its quad (xor 1, then 2); dQ over the key
+// tiles in order and dK, dV over the q tiles in order, in registers; each
+// product over its k16 steps, issued in order into one accumulator.
+// delta stays exact because it is summed from the same fp32 p and dp*keep
+// that ds is formed from, never from the stored output.
 // fp32 inputs take a plain kernel of shared-memory tiles and FMA products
 // (exact checks; not on the main path).
 //
@@ -417,12 +437,13 @@ attention_bwd_dq(const Args<float> a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels with every tile's fragments in registers
+// bf16: wgmma kernels, one warpgroup (4 warps, 64 rows) a block
 // ---------------------------------------------------------------------------
 
 constexpr int MT = 64;            // rows of a q or key tile
-constexpr int MWARPS = 4;         // warp w owns rows [16w, 16w + 16)
+constexpr int MWARPS = 4;         // warp w holds rows [16w, 16w + 16)
 constexpr int MTHREADS = MWARPS * 32;
+constexpr int NSTAGE = 2;         // cp.async stages of the streamed tiles
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -441,35 +462,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// every committed group but the newest N has landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -477,18 +473,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Shared memory of both bf16 passes: two resident [64, DH] tiles, two
-// stages of two streamed tiles, two stages of three per-row vectors.  Rows
-// are padded by 16 bytes so the 8 row addresses of every ldmatrix fall in
-// distinct bank groups.
+// Element (r, c) of a [64, W] bf16 tile in shared memory, in wgmma's
+// 128-byte swizzle: the tile is W/64 atoms of [64 rows, 64 columns], a row
+// 128 bytes, and the 16-byte chunk c/8 of row r sits at chunk (c/8) ^ (r%8)
+// of its row, so the 8 rows of a core matrix fall in distinct banks.
+// Tiles start on 1024-byte boundaries (the swizzle is of address bits).
+__device__ __forceinline__ int at(int r, int c) {
+  return (c >> 6) * (MT * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
+         (c & 7);
+}
+
+// Shared memory of both bf16 passes: two resident [64, DH] tiles, NSTAGE
+// stages of two streamed tiles, NSTAGE stages of up to three per-row
+// vectors.
 template <int DH>
 struct MmaLayout {
-  static constexpr int LD = DH + 8;     // bf16 per smem row
-  static constexpr int TILE = MT * LD;  // bf16 per 64-row tile
+  static constexpr int TILE = MT * DH;  // bf16 a tile
   static constexpr size_t resident = 0;
   static constexpr size_t stages = resident + sizeof(bf16) * 2 * TILE;
-  static constexpr size_t vecs = stages + sizeof(bf16) * 4 * TILE;
-  static constexpr size_t bytes = vecs + sizeof(float) * 2 * 3 * MT;
+  static constexpr size_t vecs = stages + sizeof(bf16) * NSTAGE * 2 * TILE;
+  static constexpr size_t bytes = vecs + sizeof(float) * NSTAGE * 3 * MT;
 };
 
 // rows [row0, row0 + 64) x DH columns of one head into smem by cp.async;
@@ -496,81 +500,170 @@ struct MmaLayout {
 template <int DH>
 __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, int row0,
                                         int L, int row_stride) {
-  constexpr int LD = MmaLayout<DH>::LD;
   constexpr int CPR = DH / 8;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < MT * CPR; i += MTHREADS) {
     const int r = i / CPR;
     const int c = (i % CPR) * 8;
     const bool valid = row0 + r < L;
-    cp_async16(dst + r * LD + c,
+    cp_async16(dst + at(r, c),
                src + (size_t)(valid ? row0 + r : 0) * row_stride + c, valid);
   }
 }
 
-// A fragments of this warp's 16 rows of a resident tile, all k16 steps.
+// The warp's 16 x 64 accumulator `p` rounded to bf16 as the A fragment of
+// k16 step kk (the accumulator of one n8 column tile and the A operand of a
+// k16 step share the mma.sync layout, so S -> P and dP -> dS need no
+// shuffle).
+__device__ __forceinline__ void to_a_frag(uint32_t (&pa)[4],
+                                          const float (&p)[MT / 8][4],
+                                          int kk) {
+  pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+  pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+  pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+  pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+}
+
+// wgmma: a 64 x N x 16 product of the whole warpgroup, B (and A, or A from
+// registers) read from shared memory through a matrix descriptor: start
+// address, leading and stride byte offsets, and the 128-byte swizzle.  A
+// K-major operand (rows M or N, K along a row): 8-row groups 1024 bytes
+// apart; a k16 step starts 32 bytes on inside its 64-column atom (a dh 128
+// tile's second atom is 8 KB on).  An MN-major operand (rows K, M or N
+// along a row): 8-row groups of K 1024 bytes apart, 64-column atoms 8 KB
+// apart; a k16 step starts 16 rows on.  The accumulator of m64nN holds, for
+// each warp's 16 rows, the mma.sync C layout of each n8 column tile
+// (float[N/8][4]); an A operand from registers is the mma.sync A layout of
+// the warp's 16 rows.
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint64_t kdesc(const bf16* p) {
+  return wg_desc(p, 16, 1024);
+}
+
+__device__ __forceinline__ uint64_t mndesc(const bf16* p) {
+  return wg_desc(p, MT * 128, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// cp.async's writes to shared memory made visible to wgmma's reads (the
+// async proxy); before the barrier that publishes them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the accumulator's registers are written by wgmma behind the compiler's
+// back: pin them across issue and wait
+template <int N>
+__device__ __forceinline__ void wg_pin(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    asm volatile("" : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]),
+                 "+f"(d[j][3])::"memory");
+}
+
+#define WG_D8(d, j)                                                      \
+  "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3]),            \
+      "+f"(d[j + 1][0]), "+f"(d[j + 1][1]), "+f"(d[j + 1][2]),           \
+      "+f"(d[j + 1][3])
+#define WG_D32(d) WG_D8(d, 0), WG_D8(d, 2), WG_D8(d, 4), WG_D8(d, 6)
+#define WG_D64(d) WG_D32(d), WG_D8(d, 8), WG_D8(d, 10), WG_D8(d, 12), \
+                  WG_D8(d, 14)
+#define WG_R32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+#define WG_R64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 64) (+)= A . B^T, A and B K-major in shared memory; acc = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[MT / 8][4], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(d)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x N) += A . B, A this warp's 16 rows from registers, B MN-major
+// in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 128, "m64n64 or m64n128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_D32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_D64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
+// s = A0 . B0^T and dp = A1 . B1^T over DH, the four [64, DH] tiles
+// K-major in shared memory: the scores and dP of the block's 64 rows
+// against 64 rows of the other side, one commit group, k16 steps in order.
 template <int DH>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[DH / 16][4],
-                                             const bf16* tile) {
-  constexpr int LD = MmaLayout<DH>::LD;
-  const int lane = threadIdx.x % 32;
-  const int row = (threadIdx.x / 32) * 16 + ((lane / 8) % 2) * 8 + lane % 8;
+__device__ __forceinline__ void scores_wg(float (&s)[MT / 8][4],
+                                          float (&dp)[MT / 8][4],
+                                          const bf16* a0, const bf16* b0,
+                                          const bf16* a1, const bf16* b1) {
+  wg_pin<MT / 8>(s);
+  wg_pin<MT / 8>(dp);
+  wg_fence();
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk)
-    ldmatrix_x4(f[kk], tile + row * LD + kk * 16 + (lane / 16) * 8);
+    wgmma_ss(s, kdesc(a0 + at(0, kk * 16)), kdesc(b0 + at(0, kk * 16)), kk);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss(dp, kdesc(a1 + at(0, kk * 16)), kdesc(b1 + at(0, kk * 16)), kk);
+  wg_commit();
+  wg_wait0();
+  wg_pin<MT / 8>(s);
+  wg_pin<MT / 8>(dp);
 }
 
-// acc[j] (16 x 8 tiles over the 64 rows of `tile`) = A . tile^T, A this
-// warp's fragments: the scores of 16 rows against 64 rows of the other
-// side (the forward's QK^T).
+// Issue out (64 x DH) += P . tile, P [64, 64] from the A fragments `pa`
+// (k16 steps in order), tile [64, DH] MN-major in shared memory; the
+// caller fences, commits and waits.
 template <int DH>
-__device__ __forceinline__ void rows_dot_tile(float (&acc)[MT / 8][4],
-                                              const uint32_t (&f)[DH / 16][4],
+__device__ __forceinline__ void frag_times_wg(float (&out)[DH / 8][4],
+                                              const uint32_t (&pa)[MT / 16][4],
                                               const bf16* tile) {
-  constexpr int LD = MmaLayout<DH>::LD;
-  const int lane = threadIdx.x % 32;
-  const int mrow = lane % 8;
-  const int mat = lane / 8;
 #pragma unroll
-  for (int j = 0; j < MT / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < MT / 8; j += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, tile + ((j + mat / 2) * 8 + mrow) * LD + kk * 16 +
-                         (mat % 2) * 8);
-      mma_bf16(acc[j], f[kk], b[0], b[1]);
-      mma_bf16(acc[j + 1], f[kk], b[2], b[3]);
-    }
-  }
-}
-
-// out[n] (16 x DH) += P . tile, P the 16 x 64 C fragments `p` (rounded to
-// bf16 as the A operand) and tile [64, DH] (the forward's PV).
-template <int DH>
-__device__ __forceinline__ void frag_times_tile(float (&out)[DH / 8][4],
-                                                const float (&p)[MT / 8][4],
-                                                const bf16* tile) {
-  constexpr int LD = MmaLayout<DH>::LD;
-  const int lane = threadIdx.x % 32;
-  const int mrow = lane % 8;
-  const int mat = lane / 8;
-#pragma unroll
-  for (int kk = 0; kk < MT / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < DH / 8; n += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, tile + (kk * 16 + (mat % 2) * 8 + mrow) * LD +
-                               (n + mat / 2) * 8);
-      mma_bf16(out[n], pa, b[0], b[1]);
-      mma_bf16(out[n + 1], pa, b[2], b[3]);
-    }
-  }
+  for (int kk = 0; kk < MT / 16; ++kk)
+    wgmma_rs<DH>(out, pa[kk], mndesc(tile + at(kk * 16, 0)));
 }
 
 // Where one (b, h) head's rows start: q, k, v (and dq, dk, dv), with their
@@ -611,18 +704,20 @@ __device__ __forceinline__ void store_rows(bf16* dst,
   }
 }
 
-// dK, dV: one block of 4 warps per (64 keys, head, batch row); warp w owns
-// keys k0 + [16w, 16w + 16) and works on S^T = K Q^T and dP^T = V dO^T, so
+// dK, dV: one block (one warpgroup) per (64 keys, head, batch row); warp w
+// holds keys k0 + [16w, 16w + 16) of S^T = K Q^T and dP^T = V dO^T, so
 // p*keep and ds come out as the A operands of dV += (p*keep)^T dO and
-// dK += ds^T Q with no transpose.  The q and dO tiles stream through two
-// cp.async stages with their rows' (m, 1/l, delta).
+// dK += ds^T Q with no transpose.  The q and dO tiles stream through
+// NSTAGE cp.async stages with their rows' (m, 1/l, delta).  At dh 64 it is
+// built for 3 blocks an SM (168 registers); at dh 128 shared memory allows
+// 2, so no register cap is set.
 template <int DH, bool PACKED>
-__global__ void __launch_bounds__(MTHREADS)
+__global__ void __launch_bounds__(MTHREADS, DH == 64 ? 3 : 1)
 attention_bwd_dkdv_bf16(const Args<bf16> a) {
   using Lay = MmaLayout<DH>;
   constexpr int NS = MT / 8;
   constexpr int NO = DH / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem + Lay::resident);
   bf16* vs = ks + Lay::TILE;
   bf16* stages = reinterpret_cast<bf16*>(smem + Lay::stages);
@@ -646,30 +741,34 @@ attention_bwd_dkdv_bf16(const Args<bf16> a) {
   const float ds_scale = a.scale * a.keep_scale;
   const int nq = (L + MT - 1) / MT;
 
+  // q tile qt into stage qt % NSTAGE, one commit group (empty past nq)
   auto load_q = [&](int qt) {
-    const int s = qt & 1;
-    bf16* qs = stages + s * 2 * Lay::TILE;
-    cp_tile<DH>(qs, a.q + rows.in, qt * MT, L, rows.stride);
-    cp_tile<DH>(qs + Lay::TILE, a.dout + rows.dout, qt * MT, L, D);
-    float* v = vecs + s * 3 * MT;
-    for (int i = threadIdx.x; i < MT; i += MTHREADS) {
-      const int q = qt * MT + i;
-      const bool valid = q < L;
-      // a q row past L gets m = inf, 1/l = 0: p = 0 there
-      const float2 st = valid ? a.stats[(size_t)bh * L + q]
-                              : make_float2(INFINITY, 1.0f);
-      v[i] = st.x;
-      v[MT + i] = valid ? 1.0f / st.y : 0.0f;
-      v[2 * MT + i] = valid ? a.delta[(size_t)bh * L + q] : 0.0f;
+    if (qt < nq) {
+      const int s = qt % NSTAGE;
+      bf16* qs = stages + s * 2 * Lay::TILE;
+      cp_tile<DH>(qs, a.q + rows.in, qt * MT, L, rows.stride);
+      cp_tile<DH>(qs + Lay::TILE, a.dout + rows.dout, qt * MT, L, D);
+      float* v = vecs + s * 3 * MT;
+      for (int i = threadIdx.x; i < MT; i += MTHREADS) {
+        const int q = qt * MT + i;
+        const bool valid = q < L;
+        // a q row past L gets m = inf, 1/l = 0: p = 0 there
+        const float2 st = valid ? a.stats[(size_t)bh * L + q]
+                                : make_float2(INFINITY, 1.0f);
+        v[i] = st.x;
+        v[MT + i] = valid ? 1.0f / st.y : 0.0f;
+        v[2 * MT + i] = valid ? a.delta[(size_t)bh * L + q] : 0.0f;
+      }
     }
     cp_async_commit();
   };
 
   cp_tile<DH>(ks, a.k + rows.in, k0, L, rows.stride);
   cp_tile<DH>(vs, a.v + rows.in, k0, L, rows.stride);
-  load_q(0);  // one group: k, v and the first q/dO tile
+  // group 0: k, v and q tile 0; then q tiles 1 .. NSTAGE - 2
+#pragma unroll
+  for (int qt = 0; qt < NSTAGE - 1; ++qt) load_q(qt);
 
-  uint32_t kf[DH / 16][4], vf[DH / 16][4];
   float dk[NO][4], dv[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -677,22 +776,18 @@ attention_bwd_dkdv_bf16(const Args<bf16> a) {
         dv[n][2] = dv[n][3] = 0.0f;
 
   for (int qt = 0; qt < nq; ++qt) {
-    cp_async_wait_all();
+    cp_async_wait<NSTAGE - 2>();
+    fence_async_smem();
     __syncthreads();  // tile qt landed; every warp is done with qt - 1
-    if (qt == 0) {
-      load_a_frags<DH>(kf, ks);
-      load_a_frags<DH>(vf, vs);
-    }
-    if (qt + 1 < nq) load_q(qt + 1);  // overlaps this tile's math
-    const bf16* qs = stages + (qt & 1) * 2 * Lay::TILE;
+    load_q(qt + NSTAGE - 1);  // into qt - 1's stage; overlaps this tile
+    const bf16* qs = stages + (qt % NSTAGE) * 2 * Lay::TILE;
     const bf16* dos = qs + Lay::TILE;
-    const float* m = vecs + (qt & 1) * 3 * MT;
+    const float* m = vecs + (qt % NSTAGE) * 3 * MT;
     const float* linv = m + MT;
     const float* delta = m + 2 * MT;
 
     float s[NS][4], dp[NS][4];
-    rows_dot_tile<DH>(s, kf, qs);    // S^T: keys x q
-    rows_dot_tile<DH>(dp, vf, dos);  // dP^T
+    scores_wg<DH>(s, dp, ks, qs, vs, dos);  // S^T: keys x q, and dP^T
     // element e of tile j: key (e < 2 ? key0 : key0 + 8), q column
     // j*8 + 2*qd + (e & 1)
 #pragma unroll
@@ -715,25 +810,39 @@ attention_bwd_dkdv_bf16(const Args<bf16> a) {
         s[j][e] = keep ? p : 0.0f;
       }
     }
-    frag_times_tile<DH>(dv, s, dos);  // dV += (p*keep)^T dO
-    frag_times_tile<DH>(dk, dp, qs);  // dK += ds^T q
+    uint32_t pa[MT / 16][4], da[MT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < MT / 16; ++kk) {
+      to_a_frag(pa[kk], s, kk);
+      to_a_frag(da[kk], dp, kk);
+    }
+    wg_pin<NO>(dv);
+    wg_pin<NO>(dk);
+    wg_fence();
+    frag_times_wg<DH>(dv, pa, dos);  // dV += (p*keep)^T dO
+    frag_times_wg<DH>(dk, da, qs);   // dK += ds^T q
+    wg_commit();
+    wg_wait0();
+    wg_pin<NO>(dv);
+    wg_pin<NO>(dk);
   }
   store_rows<DH>(a.dk + rows.in, dk, key0, L, rows.stride, 1.0f);
   store_rows<DH>(a.dv + rows.in, dv, key0, L, rows.stride, a.keep_scale);
 }
 
-// dQ (and delta): one block of 4 warps per (64 q rows, head, batch row);
-// warp w owns rows q0 + [16w, 16w + 16) and works on S = Q K^T and
-// dP = dO V^T as the forward does.  It walks the keys twice through two
-// cp.async stages: first for delta = rowsum(dp * p) (written out for the
-// dkdv pass), then for ds and dQ += ds K.
+// dQ (and delta): one block (one warpgroup) per (64 q rows, head, batch
+// row); warp w holds rows q0 + [16w, 16w + 16) of S = Q K^T and
+// dP = dO V^T.  It walks the keys twice through NSTAGE cp.async stages:
+// first for delta = rowsum(dp * p) (written out for the dkdv pass), then
+// for ds and dQ += ds K.  At dh 64 it is built for 4 blocks an SM (128
+// registers); at dh 128 shared memory allows 2, so no register cap is set.
 template <int DH, bool PACKED>
-__global__ void __launch_bounds__(MTHREADS)
+__global__ void __launch_bounds__(MTHREADS, DH == 64 ? 4 : 1)
 attention_bwd_dq_bf16(const Args<bf16> a) {
   using Lay = MmaLayout<DH>;
   constexpr int NS = MT / 8;
   constexpr int NO = DH / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem + Lay::resident);
   bf16* dos = qs + Lay::TILE;
   bf16* stages = reinterpret_cast<bf16*>(smem + Lay::stages);
@@ -765,23 +874,27 @@ attention_bwd_dq_bf16(const Args<bf16> a) {
     linv[i] = r < L ? 1.0f / st.y : 0.0f;
   }
 
-  // tile t of the two walks is key tile t % nk, in stage t & 1
+  // tile t of the two walks is key tile t % nk, in stage t % NSTAGE; one
+  // commit group (empty past the walks)
   auto load_kv = [&](int t) {
-    const int s = t & 1;
-    const int kt = t % nk;
-    bf16* ks = stages + s * 2 * Lay::TILE;
-    cp_tile<DH>(ks, a.k + rows.in, kt * MT, L, rows.stride);
-    cp_tile<DH>(ks + Lay::TILE, a.v + rows.in, kt * MT, L, rows.stride);
-    for (int i = threadIdx.x; i < MT; i += MTHREADS)
-      biases[s * MT + i] = key_bias(pad_b, kt * MT + i, L);
+    if (t < 2 * nk) {
+      const int s = t % NSTAGE;
+      const int kt = t % nk;
+      bf16* ks = stages + s * 2 * Lay::TILE;
+      cp_tile<DH>(ks, a.k + rows.in, kt * MT, L, rows.stride);
+      cp_tile<DH>(ks + Lay::TILE, a.v + rows.in, kt * MT, L, rows.stride);
+      for (int i = threadIdx.x; i < MT; i += MTHREADS)
+        biases[s * MT + i] = key_bias(pad_b, kt * MT + i, L);
+    }
     cp_async_commit();
   };
 
   cp_tile<DH>(qs, a.q + rows.in, q0, L, rows.stride);
   cp_tile<DH>(dos, a.dout + rows.dout, q0, L, D);
-  load_kv(0);  // one group: q, dO and the first k/v tile
+  // group 0: q, dO and the first k/v tile; then tiles 1 .. NSTAGE - 2
+#pragma unroll
+  for (int t = 0; t < NSTAGE - 1; ++t) load_kv(t);
 
-  uint32_t qf[DH / 16][4], dof[DH / 16][4];
   float dq[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -789,13 +902,10 @@ attention_bwd_dq_bf16(const Args<bf16> a) {
   float delta[2] = {0.0f, 0.0f};
 
   for (int t = 0; t < 2 * nk; ++t) {
-    cp_async_wait_all();
+    cp_async_wait<NSTAGE - 2>();
+    fence_async_smem();
     __syncthreads();  // tile t landed; every warp is done with t - 1
-    if (t == 0) {
-      load_a_frags<DH>(qf, qs);
-      load_a_frags<DH>(dof, dos);
-    }
-    if (t + 1 < 2 * nk) load_kv(t + 1);
+    load_kv(t + NSTAGE - 1);  // into t - 1's stage; overlaps this tile
     if (t == nk) {
       // delta of this lane's rows: the sum over its quad
 #pragma unroll
@@ -807,13 +917,12 @@ attention_bwd_dq_bf16(const Args<bf16> a) {
       }
     }
     const int k0 = (t % nk) * MT;
-    const bf16* ks = stages + (t & 1) * 2 * Lay::TILE;
+    const bf16* ks = stages + (t % NSTAGE) * 2 * Lay::TILE;
     const bf16* vs = ks + Lay::TILE;
-    const float* bias = biases + (t & 1) * MT;
+    const float* bias = biases + (t % NSTAGE) * MT;
 
     float s[NS][4], dp[NS][4];
-    rows_dot_tile<DH>(s, qf, ks);    // S: q x keys
-    rows_dot_tile<DH>(dp, dof, vs);  // dP
+    scores_wg<DH>(s, dp, qs, ks, dos, vs);  // S: q x keys, and dP
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
 #pragma unroll
@@ -836,7 +945,17 @@ attention_bwd_dq_bf16(const Args<bf16> a) {
           dp[j][e] = p * (dpk - delta[e / 2]) * ds_scale;
       }
     }
-    if (t >= nk) frag_times_tile<DH>(dq, dp, ks);  // dQ += ds k
+    if (t >= nk) {  // dQ += ds k
+      uint32_t da[MT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < MT / 16; ++kk) to_a_frag(da[kk], dp, kk);
+      wg_pin<NO>(dq);
+      wg_fence();
+      frag_times_wg<DH>(dq, da, ks);
+      wg_commit();
+      wg_wait0();
+      wg_pin<NO>(dq);
+    }
   }
   store_rows<DH>(a.dq + rows.in, dq, row0, L, rows.stride, 1.0f);
 }

@@ -99,6 +99,14 @@ SPLIT_CASES = [(dt, l, 64, masked, rate)
                for masked in (True, False) for rate in (0.0, 0.1)]
 SPLIT_CASES += [("bfloat16", 256, 128, True, 0.1),
                 ("float32", 256, 128, True, 0.1)]
+# the edges of the backward's 64-row tiles: L = 65 (two tiles, the second
+# of one key), L = 512 (eight, the longest L the text encoders take with
+# dropout) and L = 640 (ten, at rate 0)
+SPLIT_CASES += [("bfloat16", l, dh, masked, rate)
+                for l, dh, masked, rate in (
+                    (65, 64, True, 0.1), (65, 64, False, 0.0),
+                    (512, 64, True, 0.1), (512, 64, False, 0.0),
+                    (512, 128, True, 0.1), (640, 64, True, 0.0))]
 # bf16: output against the fp32 plain version within 2e-2 (bf16 rounding
 # of p and of the output); gradients against the plain backward run on the
 # same bf16 inputs within 3e-2 of the largest reference gradient.  Both
@@ -332,9 +340,12 @@ def test_lora_dropout_kernels_refuse_what_they_do_not_take():
 
 
 # (L, dh, masked, rate): HoME's ViT (L = 197, no mask, rate 0), the text
-# shape masked at rate 0.1, L = 128 masked at rate 0, and dh 128
+# shape masked at rate 0.1, L = 128 masked at rate 0, dh 128, and the tile
+# edges L = 65, 512 and 640 (packed dropout needs L % 128 == 0)
 PACKED_BWD_CASES = [(197, 64, False, 0.0), (384, 64, True, 0.1),
-                    (128, 64, True, 0.0), (256, 128, True, 0.1)]
+                    (128, 64, True, 0.0), (256, 128, True, 0.1),
+                    (65, 64, True, 0.0), (512, 64, False, 0.1),
+                    (640, 64, True, 0.0)]
 
 
 @pytest.mark.cuda
@@ -376,6 +387,42 @@ def test_packed_backward_matches_plain_version(l, dh, masked, rate):
     assert leaf.grad.dtype == qkv.dtype and leaf.grad.shape == qkv.shape
     err = (leaf.grad.float() - want.float()).abs().max().item()
     assert err <= SPLIT_TOL["bfloat16"][1] * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,l,rate", [("split", 384, 0.1),
+                                           ("split", 640, 0.0),
+                                           ("packed", 197, 0.0)])
+def test_backward_is_bitwise_deterministic(layout, l, rate):
+    """Two backward calls on the same inputs give the same gradients bit for
+    bit: every sum, dQ's over the key tiles and delta's too, is taken in a
+    fixed order, with no atomics."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    heads, dh, hb, b = 12, 64, 6, 8
+    d = heads * dh
+    g = torch.randn(b, l, d, generator=gen, device="cuda").bfloat16()
+    seed = 5150 if rate else None
+    if layout == "split":
+        q, k, v = (torch.randn(b, l, d, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(3))
+        lens = torch.randint(1, l + 1, (b,), generator=gen, device="cuda")
+        pad = torch.arange(l, device="cuda")[None, :] >= lens[:, None]
+        _, stats = tfa._flash_fwd_cuda(q, k, v, pad, seed, heads, rate, True)
+        run = lambda: tfa.flash_attention_bwd(q, k, v, pad, seed, g, heads,
+                                              rate, stats)
+    else:
+        qkv = torch.randn(b, l, 3 * d, generator=gen,
+                          device="cuda").bfloat16()
+        _, stats = tfa._packed_fwd_cuda(qkv, None, seed, heads, hb, rate,
+                                        True)
+        run = lambda: (tfa.flash_attention_packed_bwd(
+            qkv, None, seed, g, heads, hb, rate, stats),)
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

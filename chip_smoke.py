@@ -9,7 +9,8 @@ exits non-zero without the final result line:
   1. device: name, count, and name + power limit from nvidia-smi;
   2. build: every CUDA kernel of the paths from csrc/ (one nvcc per source,
      all started together; sm_90a), with ptxas's registers and spills per
-     kernel;
+     kernel; it fails if the main path's dh-64 bf16 attention kernels (the
+     three forward instantiations, the four backward ones) spill;
   3. kernels: each kernel against its plain PyTorch version at the main
      paths' shapes (bf16 in; the plain forward in fp32 on the same inputs,
      the plain backward on the same bf16 inputs), with the kernel's, the
@@ -23,13 +24,18 @@ exits non-zero without the final result line:
      through #6 in every entry) and packed_bwd_kernel for #7 (ViT B = 64,
      L = 197; and B = 128, L = 384 masked at rate 0.1).  Two backward calls
      on the same inputs must give the same gradients bit for bit (#3, #7),
-     and each timed backward also runs back to back for a second while
-     nvidia-smi samples the SM clock and the power draw;
+     and each timed attention forward and backward also runs back to back
+     for a second while nvidia-smi samples the SM clock and the power draw.
+     The forward's bound counts the keys the call's pad mask leaves each row
+     (its real keys; every key for a row with none), as the kernel walks
+     only the key tiles that hold one;
   4. predictor: the full-width Predictor (batch 64, 2 chunks per sample,
      BERT-base x2 + ViT-base, bf16 compute, seeded init weights) scores a
      few batches on the host clock (and, apart, the host packing of their
      texts), then two more under torch.profiler: device time by kind, the
-     kernel's device ms per forward and the device's busy share.  The
+     kernel's device ms per forward and the device's busy share, and the
+     bound of those forwards' attention inputs and the share of key tiles
+     the kernel walked in them.  The
      kernel launch counts of that run are checked, the probabilities must
      be finite, in (0, 1), and agree with the same model on the plain
      attention path; a small fp32 model must agree with the same model on
@@ -42,8 +48,9 @@ exits non-zero without the final result line:
      frozen ViT-base, bf16 compute, dropout 0.1, AdamW with the
      freeze->warmup LoRA group, no remat) on a seeded random batch staged
      on the card once: 1 warm-up step, 3 steps on the host clock, 1 step
-     under torch.profiler; launches per step of #1-#7 checked, losses
-     finite, no micro-batch skipped, peak memory;
+     under torch.profiler (its attention inputs give #1's, #2's and #3's
+     bound per step); launches per step of #1-#7 checked, losses finite,
+     no micro-batch skipped, peak memory;
   7. train_check: the same at 2 text layers, one step on the kernel path
      and one on the plain attention path, same weights, batch and seeds:
      loss, grad_norm and LoRA gradient gaps against stated limits; then
@@ -74,7 +81,20 @@ exits non-zero without the final result line:
      CPU.
 Then one JSON line of kernel records, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Needs one card; exits non-zero
-without one.  It drives the checkout it sits in, or else the one it is run
+without one.
+
+    python3 chip_smoke.py --fwd-variants 'label=[checkout];...'
+
+times the attention forwards of several checkouts of the repo beside each
+other instead (empty: this one; say the parent's, unpacked by `git
+archive` into the git-ignored _parent/, or a copy with another
+csrc/flash_attention_fwd.cu): after the device phase, each checkout builds
+its attention kernels in a process of its own, all started together, and
+then, in the listed order and then reversed, runs kernel_check's text, ViT
+and rate 0.1 cases and split_kernel_check's rates 0.1 and 0 in another,
+through its own chip_smoke.py.
+
+It drives the checkout it sits in, or else the one it is run
 from (python3 /elsewhere/chip_smoke.py from a checkout's root), and exits
 non-zero, printing no result, when neither holds the port's package.
 Checkpoints and shards go to the git-ignored _smoke_work/ of that
@@ -258,6 +278,47 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # phase 3: kernel vs plain version
 # ---------------------------------------------------------------------------
 
+def bound(nbytes, flops):
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the bf16 tensor-core peak."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def fwd_work(pad, b, l, heads, dh, el, stats):
+    """What one attention forward call must move and do, from its pad mask:
+    (bytes, products, key tiles walked, key tiles), tiles counted over
+    (row, head).  Each row's q is read and its output written once; k, v
+    and the products count only the keys a row needs, its real keys (a
+    padded key weighs exactly 0 beside a real one) or every key for a row
+    with none (uniform weights), as the kernel walks only the key tiles that
+    hold a real key; then the pad mask read and the statistics written
+    (`stats`)."""
+    d, nt = heads * dh, -(-l // 64)
+    if pad is None:
+        keys, walked = b * l, b * nt
+    else:
+        real = ~pad.bool()
+        n = real.sum(1)
+        keys = int(n.masked_fill(n == 0, l).sum())
+        live = real.new_zeros(b, nt * 64)
+        live[:, :l] = real
+        live = live.reshape(b, nt, 64).any(2).sum(1)
+        walked = int(live.masked_fill(live == 0, nt).sum())
+    nbytes = ((2 * b * l + 2 * keys) * d * el + (0 if pad is None else b * l)
+              + (b * heads * l * 8 if stats else 0))
+    return nbytes, 4 * l * keys * d, heads * walked, heads * b * nt
+
+
+def bwd_work(b, l, heads, dh, el):
+    """What one split backward call must move and do, walking every key:
+    q, k, v and dO read and dq, dk, dv written once, the pad mask and the
+    statistics read; (bytes, products)."""
+    d = heads * dh
+    return 7 * b * l * d * el + b * l + b * heads * l * 8, 10 * b * l * l * d
+
+
 def attention_case(name, b, l, heads, dh, hb, masked, rate, gen,
                    dtype=None, tol=KERNEL_TOL, timed=True):
     import torch
@@ -296,17 +357,15 @@ def attention_case(name, b, l, heads, dh, hb, masked, rate, gen,
         attn_mask = None if pad is None else ~pad[:, None, None, :]
         library = lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=0.0)
-        io_bytes = (qkv.numel() * qkv.element_size() + b * l * d
-                    * qkv.element_size() + (b * l if masked else 0))
-        flops = 4 * b * l * l * d
+        io_bytes, flops, walked, tiles = fwd_work(
+            pad, b, l, heads, dh, qkv.element_size(), stats=False)
+        bound_ms, bound_by = bound(io_bytes, flops)
         rec.update(
             ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, iters=3, warmup=1),
-            library_ms=cuda_ms(library),
-            bound_ms=1e3 * max(io_bytes / HBM_BYTES_PER_S,
-                               flops / BF16_FLOPS_PER_S),
-            bound_by=("bytes" if io_bytes / HBM_BYTES_PER_S
-                      >= flops / BF16_FLOPS_PER_S else "operations"),
-            io_bytes=io_bytes, flops=flops)
+            library_ms=cuda_ms(library), bound_ms=bound_ms,
+            bound_by=bound_by, io_bytes=io_bytes, flops=flops,
+            key_tiles_walked_share=walked / tiles,
+            sustained=sustained(kernel))
         fns = {"ms": kernel, "plain_ms": plain, "library_ms": library}
     log("kernel_check", **rec)
     return rec, fns
@@ -400,10 +459,9 @@ def split_case(name, b, l, heads, dh, rate, gen, timed=True):
     fns = None
     if timed:
         el = q.element_size()
-        mask_bytes = b * l
-        fwd_bytes = 4 * b * l * d * el + mask_bytes + b * heads * l * 8
-        bwd_bytes = 7 * b * l * d * el + mask_bytes + b * heads * l * 8
-        fwd_flops, bwd_flops = 4 * b * l * l * d, 10 * b * l * l * d
+        fwd_bytes, fwd_flops, walked, tiles = fwd_work(pad, b, l, heads, dh,
+                                                       el, stats=True)
+        bwd_bytes, bwd_flops = bwd_work(b, l, heads, dh, el)
         plain_fwd = lambda: fa.flash_attention_reference(q, k, v, pad, seed,
                                                          heads, rate)
         plain_bwd = lambda: fa.flash_attention_bwd_reference(
@@ -423,17 +481,14 @@ def split_case(name, b, l, heads, dh, rate, gen, timed=True):
         def lib_fwd_bwd():
             lib_fwd().backward(sg)
 
-        def bound(nbytes, flops):
-            return (1e3 * max(nbytes / HBM_BYTES_PER_S,
-                              flops / BF16_FLOPS_PER_S),
-                    "bytes" if nbytes / HBM_BYTES_PER_S
-                    >= flops / BF16_FLOPS_PER_S else "operations")
         fwd_bound, fwd_by = bound(fwd_bytes, fwd_flops)
         bwd_bound, bwd_by = bound(bwd_bytes, bwd_flops)
         lib_f = cuda_ms(lib_fwd)
         rec.update(
             fwd_ms=cuda_ms(fwd), fwd_plain_ms=cuda_ms(plain_fwd, 2, 1),
             fwd_library_ms=lib_f, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+            fwd_key_tiles_walked_share=walked / tiles,
+            fwd_sustained=sustained(fwd),
             bwd_ms=cuda_ms(bwd), bwd_plain_ms=cuda_ms(plain_bwd, 2, 1),
             bwd_library_ms=cuda_ms(lib_fwd_bwd) - lib_f,
             bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
@@ -515,14 +570,6 @@ def phase_split_kernels():
     log("split_kernel_step", calls=n_calls, **per_step)
     torch.cuda.empty_cache()
     return main, rate0, per_step
-
-
-def bound(nbytes, flops):
-    """(bound ms, what bounds it): the larger of the bytes over the memory
-    rate and the operations over the bf16 tensor-core peak."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                         else "operations")
 
 
 def phase_lora_kernels():
@@ -803,7 +850,8 @@ def phase_predictor(batch: int, forwards: int, profiled_forwards: int):
     """The main path: warm-up, `forwards` requests timed on the host clock,
     then `profiled_forwards` requests under torch.profiler, whose device
     time by kind gives the attention kernel's ms per forward and the
-    device's busy share."""
+    device's busy share, and whose attention inputs give its bound per
+    forward and the share of key tiles it walked."""
     import torch
     from mmoe_multimodal_rec_tpu_torch.eval.predict import Predictor
     from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
@@ -835,10 +883,17 @@ def phase_predictor(batch: int, forwards: int, profiled_forwards: int):
         pred.packer.pack(users, budget)
         pred.packer.pack(items, budget)
         pack_ms.append(1e3 * (time.perf_counter() - t0))
-    prof_outs, window_ms, by_kind, top = profiled(
-        lambda: [pred.predict(*batch) for batch in batches[forwards:]])
+    with attention_calls() as seen:
+        prof_outs, window_ms, by_kind, top = profiled(
+            lambda: [pred.predict(*batch) for batch in batches[forwards:]])
     outs += prof_outs
     counts = read_launches()
+    in_path = in_path_bounds(seen["flash_attention_packed"],
+                             profiled_forwards)
+    check(in_path["calls"] == 36 and not seen["flash_attention"],
+          f"the profiled forwards made {in_path['calls']} packed attention "
+          f"calls a forward, expected 36, and "
+          f"{len(seen['flash_attention'])} split ones")
     launches = counts.pop("flash_attention_packed")
     peak = torch.cuda.max_memory_allocated()
     n_fwd = forwards + profiled_forwards + len(pred.buckets)
@@ -851,7 +906,8 @@ def phase_predictor(batch: int, forwards: int, profiled_forwards: int):
         device_ms_per_request_by_kind={
             k: v / profiled_forwards for k, v in by_kind.items()},
         top_kernels_ms_per_request=[(k, v / profiled_forwards)
-                                    for k, v in top])
+                                    for k, v in top],
+        attention_inputs_per_request=in_path)
     check(launches == 36 * n_fwd,
           f"flash_attention_packed launched {launches} times in {n_fwd} "
           f"forwards, expected 36 per forward")
@@ -897,10 +953,11 @@ def phase_predictor(batch: int, forwards: int, profiled_forwards: int):
         launches_per_forward=launches / n_fwd, init_s=init_s,
         request_ms=request_ms, host_pack_ms=pack_ms, peak_bytes=peak,
         kernel_ms_per_forward=kernel_ms,
+        kernel_bound_ms_per_forward=in_path["fwd"]["bound_ms"],
         kernel_vs_plain_path_max_prob_diff=plain_err,
         small_fp32_gpu_vs_cpu_max_prob_diff=small_err,
         prob_good_mean=float(np.mean([o["prob_good"] for o in outs])))
-    return pred, launches, kernel_ms
+    return pred, launches, {"ms": kernel_ms, **in_path["fwd"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1079,6 +1136,68 @@ def plain_masks_on_card():
         fa.dropout_keep_mask_reference = plain
 
 
+@contextlib.contextmanager
+def attention_calls():
+    """The model's attention forward calls while the block runs, by
+    wrapper (`flash_attention_packed`, `flash_attention`): (batch, L, heads,
+    dh, pad mask, statistics stored, element size) a call.  The pad masks
+    are kept, not copied (a forward makes its own), and read after the
+    block, so that the block's device work is the model's alone."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.models import layers
+    calls = {"flash_attention_packed": [], "flash_attention": []}
+    real = {name: getattr(layers, name) for name in calls}
+
+    def packed(qkv, pad_mask, seed, n_heads, *rest):
+        b, l, d3 = qkv.shape
+        calls["flash_attention_packed"].append(
+            (b, l, n_heads, d3 // 3 // n_heads, pad_mask,
+             qkv.requires_grad and torch.is_grad_enabled(),
+             qkv.element_size()))
+        return real["flash_attention_packed"](qkv, pad_mask, seed, n_heads,
+                                              *rest)
+
+    def split(q, k, v, pad_mask, seed, n_heads, *rest):
+        b, l, d = q.shape
+        calls["flash_attention"].append(
+            (b, l, n_heads, d // n_heads, pad_mask,
+             torch.is_grad_enabled() and any(x.requires_grad
+                                             for x in (q, k, v)),
+             q.element_size()))
+        return real["flash_attention"](q, k, v, pad_mask, seed, n_heads,
+                                       *rest)
+    layers.flash_attention_packed, layers.flash_attention = packed, split
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(layers, name, fn)
+
+
+def in_path_bounds(calls, per: int, backward: bool = False):
+    """The bound of recorded attention calls (attention_calls), per forward
+    or step (`per`): the sum of each call's bound from its own inputs, what
+    bounds the whole, and the share of key tiles the forward walks; with
+    `backward`, also the split backward's bound over the same calls."""
+    out = {"calls": len(calls) / per}
+    sides = ("fwd", "bwd") if backward else ("fwd",)
+    for side in sides:
+        ms = nbytes = flops = walked = tiles = 0
+        for b, l, heads, dh, pad, stats, el in calls:
+            if side == "fwd":
+                nb, fl, w, t = fwd_work(pad, b, l, heads, dh, el, stats)
+                walked, tiles = walked + w, tiles + t
+            else:
+                nb, fl = bwd_work(b, l, heads, dh, el)
+            ms += bound(nb, fl)[0]
+            nbytes, flops = nbytes + nb, flops + fl
+        out[side] = {"bound_ms": ms / per,
+                     "bound_by": bound(nbytes, flops)[1]}
+        if side == "fwd":
+            out[side]["key_tiles_walked_share"] = walked / max(tiles, 1)
+    return out
+
+
 def random_batch(cfg, seed: int):
     """bench.py's random_batch: random token ids in every chunk, ~8
     sentences per sample routed into its 2 chunks, random patches, 80% with
@@ -1140,8 +1259,9 @@ def drive_trainer(cfg, timed_steps: int = 3, keep=None):
             metrics.append(trainer.run_step(batch))
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
-        prof_m, window_ms, by_kind, top = profiled(
-            lambda: trainer.run_step(batch))
+        with attention_calls() as seen:
+            prof_m, window_ms, by_kind, top = profiled(
+                lambda: trainer.run_step(batch))
     metrics.append(prof_m)
     launches = read_launches()
     check(not plain_masks, f"the plain keep mask ran on the card in the "
@@ -1161,6 +1281,13 @@ def drive_trainer(cfg, timed_steps: int = 3, keep=None):
             check(by_kind.get(kind, 0.0) > 0,
                   f"no device time of {kind} in the profiled step")
     device_ms = sum(by_kind.values())
+    inputs = {"flash_attention_packed":
+              in_path_bounds(seen["flash_attention_packed"], 1),
+              "flash_attention":
+              in_path_bounds(seen["flash_attention"], 1, backward=True)}
+    for wrapper, rec in inputs.items():
+        check(rec["calls"] == want[wrapper], f"the profiled step made "
+              f"{rec['calls']} {wrapper} calls, expected {want[wrapper]}")
     examples = cfg.train.batch_size * cfg.train.optim.grad_accum
     run = {"examples_per_step": examples, "steps": steps, "init_s": init_s,
            "warmup_step_s": warm_s, "step_ms": step_ms,
@@ -1175,7 +1302,8 @@ def drive_trainer(cfg, timed_steps: int = 3, keep=None):
            "grad_norms": [m["grad_norm"] for m in metrics]}
     prof = {"window_ms": window_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / window_ms,
-            "device_ms_by_kind": by_kind, "top_kernels_ms": top}
+            "device_ms_by_kind": by_kind, "top_kernels_ms": top,
+            "attention_inputs": inputs}
     return trainer, batch, run, prof, kept
 
 
@@ -1207,7 +1335,7 @@ def phase_train(timed_steps: int = 3):
     ckpt = save_checkpoint(trainer, "ckpt_baseline")
     del trainer, batch
     torch.cuda.empty_cache()
-    return run["launches"], prof["device_ms_by_kind"], ckpt
+    return run["launches"], prof, ckpt
 
 
 def check_trainer(cfg, device: str):
@@ -1381,7 +1509,7 @@ def phase_home_train(timed_steps: int = 3):
     ckpt = save_checkpoint(trainer, "ckpt_home")
     del trainer, batch, ft, grads, kept
     torch.cuda.empty_cache()
-    return run["launches"], prof["device_ms_by_kind"], ckpt
+    return run["launches"], prof, ckpt
 
 
 def phase_home_check(text_layers: int = 2):
@@ -1741,27 +1869,45 @@ def ptxas_report(log_text: str):
     return out
 
 
-def check_bwd_spills(log_text: str):
-    """The attention backward's main-path instantiations (bf16, dh 64: the
-    split #3 and the packed #7, dq and dk/dv each) spill nothing: their
-    register budgets (128 and 168, for 4 and 3 blocks an SM) set their
-    speed, and a change that outgrows one shows up as spilled bytes."""
-    spills, name = {}, None
+def check_spills(log_text: str, kernel_re: str, count: int, what: str,
+                 strict: bool = True):
+    """ptxas's registers and spilled bytes of the kernels whose mangled
+    names match `kernel_re`: there must be `count` of them, none spilling
+    (`strict`; a variant timed beside the shipped build only reports them).
+    A change that outgrows a kernel's register budget shows up as spilled
+    bytes, not as registers."""
+    spills, regs, name = {}, {}, None
     for line in log_text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)
             continue
+        if not (name and re.search(kernel_re, name)):
+            continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and name and re.search(r"attention_bwd_(dq|dkdv)_bf16ILi64E",
-                                    name):
+        if m:
             spills[name] = int(m.group(1)) + int(m.group(2))
-    check(len(spills) == 4, f"ptxas reported {len(spills)} of the 4 dh-64 "
-          "bf16 backward kernels")
-    check(not any(spills.values()),
-          f"dh-64 bf16 backward kernels spill: {spills}")
-    return spills
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs[name] = int(m.group(1))
+    check(len(spills) == count, f"ptxas reported {len(spills)} of the "
+          f"{count} {what}")
+    check(not (strict and any(spills.values())), f"{what} spill: {spills}")
+    return {"spill_bytes": spills, "registers": regs}
+
+
+# The main path's instantiations that must not spill: the attention
+# backward's (bf16, dh 64: the split #3 and the packed #7, dq and dk/dv
+# each; budgets 128 and 168 registers, for 4 and 3 blocks an SM) and the
+# forward's (bf16, dh 64: split with statistics #2, packed with and without
+# #1; 128 registers, for 2 blocks of 2 warpgroups an SM).
+SPILL_CHECKS = {
+    "flash_attention_bwd": (r"attention_bwd_(dq|dkdv)_bf16ILi64E", 4,
+                            "dh-64 bf16 backward kernels"),
+    "flash_attention_fwd": (r"attention_fwd_bf16ILi64E", 3,
+                            "dh-64 bf16 forward kernels"),
+}
 
 
 def build_all(names):
@@ -1773,10 +1919,116 @@ def build_all(names):
     seconds = time.perf_counter() - t0
     for name, lib in libs.items():
         text = lib.with_name(lib.name + ".log").read_text()
-        extra = ({"spill_bytes_dh64": check_bwd_spills(text)}
-                 if name == "flash_attention_bwd" else {})
+        extra = ({"dh64": check_spills(text, *SPILL_CHECKS[name])}
+                 if name in SPILL_CHECKS else {})
         log("build", source=f"csrc/{name}.cu", seconds=seconds,
             library=lib.name, ptxas=ptxas_report(text), **extra)
+
+
+# ---------------------------------------------------------------------------
+# --fwd-variants: the attention forwards of checkouts timed beside each other
+# ---------------------------------------------------------------------------
+
+# Built in a checkout, by its own ops/cuda_lib.py; prints the libraries.
+FWD_VARIANT_BUILD = """
+from mmoe_multimodal_rec_tpu_torch.ops import cuda_lib
+print(cuda_lib.build("flash_attention_bwd"))
+print(cuda_lib.build("flash_attention_fwd"))
+"""
+
+# Run in a checkout by its own chip_smoke.py: the kernel phases' forward
+# cases, each held to its plain version, and one line of their times.
+FWD_VARIANT_CASES = """
+import sys
+import torch
+import chip_smoke as c
+ms, library_ms = {}, {}
+gen = torch.Generator(device="cuda").manual_seed(0)
+for case, s, masked, rate in (("text", c.TEXT, True, 0.0),
+                              ("vit", c.VIT, False, 0.0),
+                              ("text_dropout_0.1", c.TEXT, True, 0.1)):
+    rec, _ = c.attention_case(case, s["b"], s["l"], s["heads"], s["dh"],
+                              s["hb"], masked, rate, gen)
+    ms[case], library_ms[case] = rec["ms"], rec["library_ms"]
+gen = torch.Generator(device="cuda").manual_seed(2)
+s = c.TEXT
+for case, rate in (("split_0.1", 0.1), ("split_0", 0.0)):
+    rec, _ = c.split_case(case, s["b"], s["l"], s["heads"], s["dh"], rate,
+                          gen)
+    ms[case], library_ms[case] = rec["fwd_ms"], rec["fwd_library_ms"]
+c.log("fwd_variant", label=sys.argv[1], round=int(sys.argv[2]), ms=ms,
+      library_ms=library_ms)
+"""
+
+
+def fwd_l2_bytes(pad, b, l, heads, dh, q_tiles: int, skip: bool) -> int:
+    """Bytes an attention forward's blocks copy from L2 into shared memory
+    (bf16), by design and not measured: each 64-row q tile once, and each
+    key tile once a block of `q_tiles` q tiles, every tile of a row or
+    (`skip`) those it walks (fwd_work's count)."""
+    nt, tile = -(-l // 64), 64 * dh * 2
+    walked = (fwd_work(pad, b, l, heads, dh, 2, False)[2] // heads if skip
+              else b * nt)
+    return heads * (b * nt * tile + -(-nt // q_tiles) * walked * 2 * tile)
+
+
+def log_fwd_design():
+    """fwd_l2_bytes for 1-3 q tiles a block, with and without skipping, at
+    the text shape (real lengths uniform over [1, L] and one all-pad row,
+    from a CPU generator, seed 0) and the ViT shape, and each as a multiple
+    of the call's qkv bytes."""
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    b, l = TEXT["b"], TEXT["l"]
+    pad = torch.arange(l)[None, :] >= torch.randint(1, l + 1, (b, 1),
+                                                    generator=gen)
+    pad[b // 2] = True
+    out = {}
+    for name, shape, p in (("text", TEXT, pad), ("vit", VIT, None)):
+        qkv = 3 * shape["b"] * shape["l"] * shape["heads"] * shape["dh"] * 2
+        out[name] = {}
+        for q in (1, 2, 3):
+            for skip in (False, True):
+                n = fwd_l2_bytes(p, shape["b"], shape["l"], shape["heads"],
+                                 shape["dh"], q, skip)
+                out[name][f"{q} q tile{'s' * (q > 1)}{', skip' * skip}"] = [
+                    n, n / qkv]
+    log("fwd_design", what="bytes copied from L2 into shared memory and "
+        "their multiple of the qkv bytes, computed from each design, not "
+        "measured", l2_to_sm_bytes=out)
+
+
+def phase_fwd_variants(spec: str, rounds: int = 2):
+    """`label=checkout;...`: each checkout of the repo (the parent's, from
+    `git archive`, under the git-ignored _parent/, or a copy with another
+    csrc/flash_attention_fwd.cu; empty: this one) builds its attention
+    kernels in a process of its own, all started together; then, in turns
+    (the listed order, then reversed), each runs FWD_VARIANT_CASES in
+    another.  Each variant's dh-64 forward registers and spilled bytes are
+    logged, not checked: a variant may spill."""
+    variants = []
+    for item in filter(None, (x.strip() for x in spec.split(";"))):
+        label, _, path = item.partition("=")
+        variants.append((label, os.path.abspath(path or REPO)))
+    builds = [subprocess.Popen([sys.executable, "-c", FWD_VARIANT_BUILD],
+                               cwd=d, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+              for _, d in variants]
+    for (label, d), proc in zip(variants, builds):
+        out = proc.communicate()[0]
+        check(proc.returncode == 0, f"variant {label} did not build:\n{out}")
+        with open(out.split()[-1] + ".log") as f:
+            report = check_spills(f.read(), r"attention_fwd_bf16ILi64E", 3,
+                                  f"variant {label}'s dh-64 bf16 forward "
+                                  "kernels", strict=False)
+        log("fwd_variant_build", label=label, checkout=d, dh64=report)
+    log_fwd_design()
+    for r in range(rounds):
+        for label, d in variants[::-1] if r % 2 else variants:
+            proc = subprocess.run([sys.executable, "-c", FWD_VARIANT_CASES,
+                                   label, str(r + 1)], cwd=d)
+            check(proc.returncode == 0, f"variant {label} failed in round "
+                                        f"{r + 1}")
 
 
 def main() -> int:
@@ -1797,6 +2049,10 @@ def main() -> int:
     smi = nvidia_smi()
     log("device", name=name, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
+    if len(sys.argv) == 3 and sys.argv[1] == "--fwd-variants":
+        phase_fwd_variants(sys.argv[2])
+        print(smi, flush=True)
+        return 0
     build_all(("flash_attention_fwd", "flash_attention_bwd", "lora_dropout",
                "dropout_keep_mask"))
 
@@ -1805,16 +2061,16 @@ def main() -> int:
     lora, lora_step = phase_lora_kernels()
     pbwd, pbwd_text, pbwd_step = phase_packed_bwd_kernel()
     keep, keep_step = phase_keep_mask_kernel()
-    pred, launches, kernel_ms = phase_predictor(batch=64, forwards=3,
-                                                profiled_forwards=2)
+    pred, launches, serving = phase_predictor(batch=64, forwards=3,
+                                              profiled_forwards=2)
     phase_server(pred)
     del pred
     torch.cuda.empty_cache()
     shutil.rmtree(WORK, ignore_errors=True)
     try:
-        train_launches, train_ms, ckpt = phase_train()
+        train_launches, train_prof, ckpt = phase_train()
         phase_train_check()
-        home_launches, home_ms, home_ckpt = phase_home_train()
+        home_launches, home_prof, home_ckpt = phase_home_train()
         phase_home_check()
         shards = write_eval_shards()
         phase_eval(ckpt, shards)
@@ -1822,7 +2078,9 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    calls = lambda key: TEXT["calls"] * text[key] + VIT["calls"] * vit[key]
+    train_ms = train_prof["device_ms_by_kind"]
+    home_ms = home_prof["device_ms_by_kind"]
+    split_in_path = train_prof["attention_inputs"]["flash_attention"]
     source = "mmoe_multimodal_rec_tpu_torch/csrc/"
     replaces = "mmoe_multimodal_rec_tpu/ops/flash_attention.py:"
     records = [{
@@ -1836,14 +2094,16 @@ def main() -> int:
             home_launches["flash_attention_packed_stats"],
         "max_abs_err": max(text["max_abs_err"], vit["max_abs_err"],
                            drop["max_abs_err"]),
-        # per serving forward (24 text + 12 ViT calls).  ms: the kernel's
-        # device time in the main path's profiled forwards; the rest: one
-        # forward's worth of calls timed back to back (phase_kernels)
-        "ms": kernel_ms, "ms_back_to_back": forward["ms"],
+        # per serving forward (24 text + 12 ViT calls).  ms and bound_ms:
+        # the kernel's device time in the main path's profiled forwards and
+        # the bound of those forwards' inputs; the rest: one forward's worth
+        # of calls timed back to back on the kernel phase's inputs, beside
+        # their bound (phase_kernels)
+        "ms": serving["ms"], "bound_ms": serving["bound_ms"],
+        "bound_by": serving["bound_by"],
+        "ms_back_to_back": forward["ms"],
+        "bound_back_to_back_ms": forward["bound_ms"],
         "plain_ms": forward["plain_ms"], "library_ms": forward["library_ms"],
-        "bound_ms": forward["bound_ms"],
-        "bound_by": ("bytes" if calls("io_bytes") / HBM_BYTES_PER_S
-                     >= calls("flops") / BF16_FLOPS_PER_S else "operations"),
         "per_call": {c["case"]: {k: c[k] for k in
                                  ("ms", "plain_ms", "bound_ms",
                                   "library_ms", "max_abs_err")}
@@ -1851,6 +2111,8 @@ def main() -> int:
         "vit_fwd_ms": {"serving": pbwd["fwd_serving_ms"],
                        "statistics": pbwd["fwd_stats_ms"]},
     }]
+    per_call_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                     "max_abs_err", "max_err_of_largest_grad")
     for side, wrapper, line, err in (
             ("fwd", "flash_attention", 229,
              max(split["fwd_max_abs_err"], split0["fwd_max_abs_err"])),
@@ -1863,18 +2125,21 @@ def main() -> int:
             "replaces": f"{replaces}{line}",
             "launches": train_launches[wrapper],
             "max_abs_err": err,
-            # per training step (2 micro-batches x 24 calls).  ms: the
-            # kernel's device time in the train phase's profiled step; the
-            # rest: one step's worth of calls timed back to back
-            "ms": train_ms[wrapper], "ms_back_to_back": step["ms"],
+            # per training step (2 micro-batches x 24 calls).  ms and
+            # bound_ms: the kernel's device time in the train phase's
+            # profiled step and the bound of that step's inputs; the rest:
+            # one step's worth of calls timed back to back on the kernel
+            # phase's inputs, beside their bound (phase_split_kernels)
+            "ms": train_ms[wrapper],
+            "bound_ms": split_in_path[side]["bound_ms"],
+            "bound_by": split_in_path[side]["bound_by"],
+            "ms_back_to_back": step["ms"],
+            "bound_back_to_back_ms": step["bound_ms"],
             "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
-            "bound_ms": step["bound_ms"],
-            "bound_by": split[f"{side}_bound_by"],
-            "per_call": {k[len(side) + 1:]: v for k, v in split.items()
-                         if k.startswith(side + "_")},
-            "per_call_rate_0": {k[len(side) + 1:]: v
-                                for k, v in split0.items()
-                                if k.startswith(side + "_")}})
+            **{name: {k: rec[f"{side}_{k}"] for k in per_call_keys
+                      if f"{side}_{k}" in rec}
+               for name, rec in (("per_call", split),
+                                 ("per_call_rate_0", split0))}})
     for wrapper, line in (("lora_dropout_fwd", 170), ("lora_dropout_da", 199),
                           ("lora_dropout_dh", 232)):
         rec, step = lora[wrapper], lora_step[wrapper]

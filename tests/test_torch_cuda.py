@@ -19,6 +19,16 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
 
 
+def _pad_rows(l):
+    """A pad mask [5, L] (True = padded): rows of real length L, L/2, 1 and
+    0 (all pad), and a row padded over [L/4, 3L/4) only, so a key tile of
+    padded keys can lie between real ones."""
+    pad = torch.arange(l, device="cuda")[None, :] >= torch.tensor(
+        [l, l // 2, 1, 0, l], device="cuda")[:, None]
+    pad[4, l // 4:3 * l // 4] = True
+    return pad
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,l,dh,masked,rate,tol", [
     ("bfloat16", 384, 64, True, 0.0, 2e-2),
@@ -27,22 +37,32 @@ def _need_card():
     ("bfloat16", 256, 128, True, 0.0, 2e-2),
     ("float32", 197, 64, True, 0.0, 1e-4),
     ("float32", 130, 128, False, 0.0, 1e-4),
+    # the bf16 kernel's tile edges: a last key tile of 1, 5 (the ViT's
+    # L = 197), 16 and 17 keys below L; L = 130 leaves the second block one
+    # q tile of two; 512 and 640 (packed dropout needs L % 128 == 0); dh
+    # 128 with dropout and at L = 197
+    ("bfloat16", 65, 64, True, 0.0, 2e-2),
+    ("bfloat16", 197, 64, True, 0.0, 2e-2),
+    ("bfloat16", 80, 64, False, 0.0, 2e-2),
+    ("bfloat16", 81, 64, True, 0.0, 2e-2),
+    ("bfloat16", 130, 64, True, 0.0, 2e-2),
+    ("bfloat16", 512, 64, True, 0.1, 2e-2),
+    ("bfloat16", 640, 64, True, 0.0, 2e-2),
+    ("bfloat16", 256, 128, True, 0.1, 2e-2),
+    ("bfloat16", 197, 128, True, 0.0, 2e-2),
 ])
 def test_packed_kernel_matches_plain_version(dtype, l, dh, masked, rate, tol):
     """flash_attention_packed's Hopper kernel against its plain version run
     in fp32 on the same inputs: bf16 output within 2e-2 (bf16 rounding of
-    p and of the output), fp32 within 1e-4 (summation order, expf).  Rows
-    of real length L, L/2, 1 and 0 (all pad)."""
+    p and of the output), fp32 within 1e-4 (summation order, expf).  Masked:
+    the rows of `_pad_rows`."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, heads = 4, 768 // dh
+    b, heads = 5, 768 // dh
     hb = tfa._head_group(dh, heads, 6)
     qkv = torch.randn(b, l, 3 * heads * dh, generator=gen,
                       device="cuda").to(getattr(torch, dtype))
-    pad = None
-    if masked:
-        lens = torch.tensor([l, l // 2, 1, 0], device="cuda")
-        pad = torch.arange(l, device="cuda")[None, :] >= lens[:, None]
+    pad = _pad_rows(l) if masked else None
     seed = 99 if rate else None
     before = tfa.flash_attention_packed.launches
     out = tfa.flash_attention_packed(qkv, pad, seed, heads, hb, rate)
@@ -107,6 +127,14 @@ SPLIT_CASES += [("bfloat16", l, dh, masked, rate)
                     (65, 64, True, 0.1), (65, 64, False, 0.0),
                     (512, 64, True, 0.1), (512, 64, False, 0.0),
                     (512, 128, True, 0.1), (640, 64, True, 0.0))]
+# the forward's: a last key tile of 5 (with dropout), 16 and 17 keys
+# below L, an odd count of q tiles (the second block's second q tile lies
+# past L), and dh 128 with a last key tile of 8
+SPLIT_CASES += [("bfloat16", l, dh, masked, rate)
+                for l, dh, masked, rate in (
+                    (197, 64, True, 0.1), (80, 64, False, 0.0),
+                    (81, 64, True, 0.1), (130, 64, True, 0.1),
+                    (200, 128, True, 0.0))]
 # bf16: output against the fp32 plain version within 2e-2 (bf16 rounding
 # of p and of the output); gradients against the plain backward run on the
 # same bf16 inputs within 3e-2 of the largest reference gradient.  Both
@@ -123,11 +151,7 @@ def _split_inputs(dtype, b, l, dh, masked, gen):
     heads = 768 // dh
     q, k, v, g = (torch.randn(b, l, heads * dh, generator=gen, device="cuda")
                   .to(getattr(torch, dtype)) for _ in range(4))
-    pad = None
-    if masked:
-        lens = torch.tensor([l, l // 2, 1, 0], device="cuda")
-        pad = torch.arange(l, device="cuda")[None, :] >= lens[:, None]
-    return heads, q, k, v, g, pad
+    return heads, q, k, v, g, _pad_rows(l) if masked else None
 
 
 @pytest.mark.cuda
@@ -135,10 +159,10 @@ def _split_inputs(dtype, b, l, dh, masked, gen):
 def test_split_kernels_match_plain_versions(dtype, l, dh, masked, rate):
     """flash_attention's forward and backward kernels against
     flash_attention_reference / flash_attention_bwd_reference on the same
-    inputs; rows of real length L, L/2, 1 and 0 (all pad) when masked."""
+    inputs; masked: the rows of `_pad_rows`."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    heads, q, k, v, g, pad = _split_inputs(dtype, 4, l, dh, masked, gen)
+    heads, q, k, v, g, pad = _split_inputs(dtype, 5, l, dh, masked, gen)
     seed = 4321 if rate else None
     fwd_tol, grad_tol = SPLIT_TOL[dtype]
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -390,34 +414,48 @@ def test_packed_backward_matches_plain_version(l, dh, masked, rate):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout,l,rate", [("split", 384, 0.1),
-                                           ("split", 640, 0.0),
-                                           ("packed", 197, 0.0)])
-def test_backward_is_bitwise_deterministic(layout, l, rate):
-    """Two backward calls on the same inputs give the same gradients bit for
-    bit: every sum, dQ's over the key tiles and delta's too, is taken in a
-    fixed order, with no atomics."""
+@pytest.mark.parametrize("direction,layout,l,rate", [
+    ("backward", "split", 384, 0.1), ("backward", "split", 640, 0.0),
+    ("backward", "packed", 197, 0.0), ("forward", "split", 384, 0.1),
+    ("forward", "packed", 197, 0.0), ("forward", "packed", 384, 0.1)])
+def test_kernels_are_bitwise_deterministic(direction, layout, l, rate):
+    """Two calls on the same inputs give the same results bit for bit.
+    Backward: every sum, dQ's over the key tiles and delta's too, is taken
+    in a fixed order, with no atomics.  Forward: the output and the
+    statistics (m, l), each row's sums in key order."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(7)
     heads, dh, hb, b = 12, 64, 6, 8
     d = heads * dh
     g = torch.randn(b, l, d, generator=gen, device="cuda").bfloat16()
     seed = 5150 if rate else None
+    lens = torch.randint(1, l + 1, (b,), generator=gen, device="cuda")
+    pad = torch.arange(l, device="cuda")[None, :] >= lens[:, None]
     if layout == "split":
         q, k, v = (torch.randn(b, l, d, generator=gen, device="cuda")
                    .bfloat16() for _ in range(3))
-        lens = torch.randint(1, l + 1, (b,), generator=gen, device="cuda")
-        pad = torch.arange(l, device="cuda")[None, :] >= lens[:, None]
         _, stats = tfa._flash_fwd_cuda(q, k, v, pad, seed, heads, rate, True)
-        run = lambda: tfa.flash_attention_bwd(q, k, v, pad, seed, g, heads,
-                                              rate, stats)
+        if direction == "forward":
+            run = lambda: tfa._flash_fwd_cuda(q, k, v, pad, seed, heads,
+                                              rate, True)
+        else:
+            run = lambda: tfa.flash_attention_bwd(q, k, v, pad, seed, g,
+                                                  heads, rate, stats)
     else:
         qkv = torch.randn(b, l, 3 * d, generator=gen,
                           device="cuda").bfloat16()
-        _, stats = tfa._packed_fwd_cuda(qkv, None, seed, heads, hb, rate,
+        pad = pad if rate else None
+        _, stats = tfa._packed_fwd_cuda(qkv, pad, seed, heads, hb, rate,
                                         True)
-        run = lambda: (tfa.flash_attention_packed_bwd(
-            qkv, None, seed, g, heads, hb, rate, stats),)
+        if direction == "forward":
+            # the serving instantiation and the one that stores (m, l)
+            run = lambda: (tfa._packed_fwd_cuda(qkv, pad, seed, heads, hb,
+                                                rate, False)[0],
+                           *tfa._packed_fwd_cuda(qkv, pad, seed, heads, hb,
+                                                 rate, True))
+        else:
+            run = lambda: (tfa.flash_attention_packed_bwd(
+                qkv, pad, seed, g, heads, hb, rate, stats),)
     first = run()
     second = run()
     torch.cuda.synchronize()

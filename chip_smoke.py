@@ -10,7 +10,8 @@ exits non-zero without the final result line:
   2. build: every CUDA kernel of the paths from csrc/ (one nvcc per source,
      all started together; sm_90a), with ptxas's registers and spills per
      kernel; it fails if the main path's dh-64 bf16 attention kernels (the
-     three forward instantiations, the four backward ones) spill;
+     three forward instantiations, the four backward ones) or its bf16 LoRA
+     forward and dA kernels spill;
   3. kernels: each kernel against its plain PyTorch version at the main
      paths' shapes (bf16 in; the plain forward in fp32 on the same inputs,
      the plain backward on the same bf16 inputs), with the kernel's, the
@@ -21,9 +22,13 @@ exits non-zero without the final result line:
      kernel_check / split_kernel_check for #1-#3 (#2 and #3 at the text
      shape timed at rates 0.1 and 0), lora_kernels for the fused LoRA
      dropout #4-#6 (M = 49152, D = 768, r = 8, rate 0.1; the mask read back
-     through #6 in every entry) and packed_bwd_kernel for #7 (ViT B = 64,
-     L = 197; and B = 128, L = 384 masked at rate 0.1).  Two backward calls
-     on the same inputs must give the same gradients bit for bit (#3, #7),
+     through #6 in every entry, the dropped input through #4 in every entry
+     and through #5 in 512 rows, bit for bit; besides the events, each
+     kernel's device time from torch.profiler and the host's time to
+     enqueue a call; torch.matmul(h, A)'s time logged as context) and
+     packed_bwd_kernel for #7 (ViT B = 64,
+     L = 197; and B = 128, L = 384 masked at rate 0.1).  Two calls on the
+     same inputs must give the same results bit for bit (#3-#7),
      and each timed attention forward and backward also runs back to back
      for a second while nvidia-smi samples the SM clock and the power draw.
      The forward's bound counts the keys the call's pad mask leaves each row
@@ -93,6 +98,12 @@ its attention kernels in a process of its own, all started together, and
 then, in the listed order and then reversed, runs kernel_check's text, ViT
 and rate 0.1 cases and split_kernel_check's rates 0.1 and 0 in another,
 through its own chip_smoke.py.
+
+    python3 chip_smoke.py --lora-variants 'label=[checkout];...'
+
+does the same for the fused LoRA dropout kernels: each checkout builds
+csrc/lora_dropout.cu and runs its own phase_lora_kernels (#4-#6 at the main
+path's shape, per call and per step's calls), in turns.
 
 It drives the checkout it sits in, or else the one it is run
 from (python3 /elsewhere/chip_smoke.py from a checkout's root), and exits
@@ -258,6 +269,21 @@ def sustained(fn, seconds: float = 1.0) -> dict:
             rec[key] = [vals[0], vals[len(vals) // 2], vals[-1]]
     torch.cuda.synchronize()
     return rec
+
+
+def host_ms(fn, iters: int = 200) -> float:
+    """Host-clock ms a call of fn() takes to enqueue, back to back with no
+    synchronisation between calls: where it exceeds the device time, the
+    host and not the kernel sets the pace of back-to-back calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return ms
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -575,8 +601,14 @@ def phase_split_kernels():
 def phase_lora_kernels():
     """#4, #5 and #6 at the main path's shape (M = 49152 rows, D = 768,
     r = 8, bf16, rate 0.1) against their plain versions, per call and for
-    one training step's calls back to back, and the keep mask read back
-    through #6 with dt @ A^T = 1 in every entry."""
+    one training step's calls back to back; two calls of each give the
+    same bits; the keep mask read back through #6 with dt @ A^T = 1 in
+    every entry, and the dropped input keep⊙h·inv bit for bit through #4
+    (a one-hot A: 8 columns a call, all D) and #5 (one-hot dt rows: 8 rows
+    a call, 512 rows); each kernel's device time (torch.profiler) and the
+    host's time to enqueue a call beside the events' per-call time;
+    torch.matmul(h, A)'s time on a line of its own, as context (not the
+    same function: no mask, no scale)."""
     import torch
     from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as ld
     m, d, r, rate = LORA["m"], LORA["d"], LORA["r"], LORA["rate"]
@@ -604,7 +636,10 @@ def phase_lora_kernels():
     recs = {}
     for name, (kernel, plain, nbytes) in cases.items():
         got = kernel()
+        again = kernel()
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name}: two calls differ")
+        del again
         want = plain()
         err = (got.float() - want.float()).abs().max().item()
         top = want.float().abs().max().item()
@@ -613,14 +648,53 @@ def phase_lora_kernels():
               f"{top}")
         bound_ms, bound_by = bound(nbytes, flops)
         recs[name] = {"max_abs_err": err, "err_of_largest": err / top,
-                      "ms": cuda_ms(kernel),
+                      "ms": cuda_ms(kernel), "host_ms": host_ms(kernel),
                       "plain_ms": cuda_ms(plain, iters=3, warmup=1),
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "io_bytes": nbytes, "flops": flops}
+                      "io_bytes": nbytes, "flops": flops,
+                      "two_calls_equal": True}
         del got, want
     log("lora_kernels", m=m, d=d, r=r, rate=rate, tol=LORA_TOL,
         library_ms=None, library_reason="no single PyTorch call computes "
         "the masked thin product or its gradients", **recs)
+    # device time a call of each kernel the wrappers launch (#5: the
+    # partial sums and the reduction over them), from torch.profiler
+    _, _, _, top = profiled(lambda: [fn() for fn, _, _ in cases.values()
+                                     for _ in range(10)])
+    log("lora_kernel_device_us", per_call={k: 1e3 * ms / 10
+                                           for k, ms in top})
+    for name in cases:
+        recs[name]["device_ms"] = sum(ms for k, ms in top
+                                      if kind_of(k) == name) / 10
+    log("lora_matmul_context", ms=cuda_ms(lambda: torch.matmul(h, a)),
+        what="torch.matmul(h, A) on the same h and A: no mask and no "
+        "scale, so not the same function and not library_ms; context only")
+
+    # the dropped input through #4 (t = x @ A, A one-hot: 8 columns of x
+    # exactly) and #5 (dA = x^T @ dt, dt one-hot rows: 8 rows of x)
+    x = ld._dropped(h, seed, rate)
+    cols = torch.arange(r, device="cuda")
+    for k in range(0, d, r):
+        onehot = torch.zeros_like(a)
+        onehot[k + cols, cols] = 1.0
+        check(torch.equal(ld.lora_dropout_fwd(h, onehot, seed, rate),
+                          x[:, k:k + r]),
+              f"lora_dropout_fwd: columns {k}..{k + r} differ from the "
+              "dropped input")
+    rows = torch.cat([torch.tensor([0, 1, 15, 16, m - 2, m - 1]),
+                      torch.randperm(m, generator=torch.Generator()
+                                     .manual_seed(0))[:512 - 6]]).cuda()
+    for k in range(0, len(rows), r):
+        onehot = torch.zeros_like(dt)
+        onehot[rows[k:k + r], cols] = 1.0
+        check(torch.equal(ld.lora_dropout_da(h, onehot, seed, rate).t(),
+                          x[rows[k:k + r]]),
+              f"lora_dropout_da: rows {rows[k:k + r].tolist()} differ from "
+              "the dropped input")
+    torch.cuda.synchronize()
+    log("lora_dropped_read_back", fwd_elements=int(x.numel()),
+        da_rows=int(len(rows)), equal=True)
+    del x
 
     # the keep mask through #6: dh = keep / (1 - rate) where dt @ A^T = 1
     dh = ld.lora_dropout_dh(torch.ones_like(dt),
@@ -1869,13 +1943,13 @@ def ptxas_report(log_text: str):
     return out
 
 
-def check_spills(log_text: str, kernel_re: str, count: int, what: str,
+def check_spills(log_text: str, kernel_re: str, count, what: str,
                  strict: bool = True):
     """ptxas's registers and spilled bytes of the kernels whose mangled
-    names match `kernel_re`: there must be `count` of them, none spilling
-    (`strict`; a variant timed beside the shipped build only reports them).
-    A change that outgrows a kernel's register budget shows up as spilled
-    bytes, not as registers."""
+    names match `kernel_re`: there must be `count` of them (None: any
+    number), none spilling (`strict`; a variant timed beside the shipped
+    build only reports them).  A change that outgrows a kernel's register
+    budget shows up as spilled bytes, not as registers."""
     spills, regs, name = {}, {}, None
     for line in log_text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -1891,22 +1965,26 @@ def check_spills(log_text: str, kernel_re: str, count: int, what: str,
         m = re.search(r"Used (\d+) registers", line)
         if m:
             regs[name] = int(m.group(1))
-    check(len(spills) == count, f"ptxas reported {len(spills)} of the "
-          f"{count} {what}")
+    check(count is None or len(spills) == count, f"ptxas reported "
+          f"{len(spills)} of the {count} {what}")
     check(not (strict and any(spills.values())), f"{what} spill: {spills}")
     return {"spill_bytes": spills, "registers": regs}
 
 
-# The main path's instantiations that must not spill: the attention
-# backward's (bf16, dh 64: the split #3 and the packed #7, dq and dk/dv
-# each; budgets 128 and 168 registers, for 4 and 3 blocks an SM) and the
+# The main path's instantiations that must not spill, by source: the
+# attention backward's (bf16, dh 64: the split #3 and the packed #7, dq and
+# dk/dv each; budgets 128 and 168 registers, for 4 and 3 blocks an SM), the
 # forward's (bf16, dh 64: split with statistics #2, packed with and without
-# #1; 128 registers, for 2 blocks of 2 warpgroups an SM).
+# #1; 128 registers, for 2 blocks of 2 warpgroups an SM) and the LoRA
+# dropout's bf16 forward #4 and dA #5 (128 registers, for 2 blocks of 8
+# warps an SM).  (log key, kernel name pattern, count, what)
 SPILL_CHECKS = {
-    "flash_attention_bwd": (r"attention_bwd_(dq|dkdv)_bf16ILi64E", 4,
+    "flash_attention_bwd": ("dh64", r"attention_bwd_(dq|dkdv)_bf16ILi64E", 4,
                             "dh-64 bf16 backward kernels"),
-    "flash_attention_fwd": (r"attention_fwd_bf16ILi64E", 3,
+    "flash_attention_fwd": ("dh64", r"attention_fwd_bf16ILi64E", 3,
                             "dh-64 bf16 forward kernels"),
+    "lora_dropout": ("bf16", r"lora_(fwd|da)_mma_kernel", 2,
+                     "bf16 LoRA forward and dA kernels"),
 }
 
 
@@ -1919,14 +1997,17 @@ def build_all(names):
     seconds = time.perf_counter() - t0
     for name, lib in libs.items():
         text = lib.with_name(lib.name + ".log").read_text()
-        extra = ({"dh64": check_spills(text, *SPILL_CHECKS[name])}
-                 if name in SPILL_CHECKS else {})
+        extra = {}
+        if name in SPILL_CHECKS:
+            key, *spec = SPILL_CHECKS[name]
+            extra[key] = check_spills(text, *spec)
         log("build", source=f"csrc/{name}.cu", seconds=seconds,
             library=lib.name, ptxas=ptxas_report(text), **extra)
 
 
 # ---------------------------------------------------------------------------
-# --fwd-variants: the attention forwards of checkouts timed beside each other
+# --fwd-variants, --lora-variants: kernels of checkouts timed beside each
+# other
 # ---------------------------------------------------------------------------
 
 # Built in a checkout, by its own ops/cuda_lib.py; prints the libraries.
@@ -1959,6 +2040,33 @@ for case, rate in (("split_0.1", 0.1), ("split_0", 0.0)):
 c.log("fwd_variant", label=sys.argv[1], round=int(sys.argv[2]), ms=ms,
       library_ms=library_ms)
 """
+
+
+# The same for the fused LoRA dropout: its build, and phase_lora_kernels
+# (#4-#6 held to their plain versions) with one line of their times.
+LORA_VARIANT_BUILD = """
+from mmoe_multimodal_rec_tpu_torch.ops import cuda_lib
+print(cuda_lib.build("lora_dropout"))
+"""
+
+LORA_VARIANT_CASES = """
+import sys
+import chip_smoke as c
+recs, step = c.phase_lora_kernels()
+c.log("lora_variant", label=sys.argv[1], round=int(sys.argv[2]),
+      ms={k: r["ms"] for k, r in recs.items()},
+      host_ms={k: r.get("host_ms") for k, r in recs.items()},
+      step_ms={k: r["ms"] for k, r in step.items()})
+"""
+
+# --<kind>-variants: (build script, cases script, pattern of the kernels
+# whose registers and spills the build line reports, their count or None)
+VARIANTS = {
+    "fwd": (FWD_VARIANT_BUILD, FWD_VARIANT_CASES, r"attention_fwd_bf16ILi64E",
+            3, "dh-64 bf16 forward kernels"),
+    "lora": (LORA_VARIANT_BUILD, LORA_VARIANT_CASES, r"lora_", None,
+             "LoRA dropout kernels"),
+}
 
 
 def fwd_l2_bytes(pad, b, l, heads, dh, q_tiles: int, skip: bool) -> int:
@@ -1998,19 +2106,20 @@ def log_fwd_design():
         "measured", l2_to_sm_bytes=out)
 
 
-def phase_fwd_variants(spec: str, rounds: int = 2):
+def phase_variants(kind: str, spec: str, rounds: int = 2):
     """`label=checkout;...`: each checkout of the repo (the parent's, from
-    `git archive`, under the git-ignored _parent/, or a copy with another
-    csrc/flash_attention_fwd.cu; empty: this one) builds its attention
-    kernels in a process of its own, all started together; then, in turns
-    (the listed order, then reversed), each runs FWD_VARIANT_CASES in
-    another.  Each variant's dh-64 forward registers and spilled bytes are
-    logged, not checked: a variant may spill."""
+    `git archive`, under the git-ignored _parent/, or a copy with an edited
+    kernel source; empty: this one) builds the `kind` kernels (VARIANTS) in
+    a process of its own, all started together; then, in turns (the listed
+    order, then reversed), each runs the kind's cases in another.  Each
+    variant's registers and spilled bytes are logged, not checked: a
+    variant may spill."""
+    build, cases, kernel_re, count, what = VARIANTS[kind]
     variants = []
     for item in filter(None, (x.strip() for x in spec.split(";"))):
         label, _, path = item.partition("=")
         variants.append((label, os.path.abspath(path or REPO)))
-    builds = [subprocess.Popen([sys.executable, "-c", FWD_VARIANT_BUILD],
+    builds = [subprocess.Popen([sys.executable, "-c", build],
                                cwd=d, stdout=subprocess.PIPE,
                                stderr=subprocess.STDOUT, text=True)
               for _, d in variants]
@@ -2018,14 +2127,14 @@ def phase_fwd_variants(spec: str, rounds: int = 2):
         out = proc.communicate()[0]
         check(proc.returncode == 0, f"variant {label} did not build:\n{out}")
         with open(out.split()[-1] + ".log") as f:
-            report = check_spills(f.read(), r"attention_fwd_bf16ILi64E", 3,
-                                  f"variant {label}'s dh-64 bf16 forward "
-                                  "kernels", strict=False)
-        log("fwd_variant_build", label=label, checkout=d, dh64=report)
-    log_fwd_design()
+            report = check_spills(f.read(), kernel_re, count,
+                                  f"variant {label}'s {what}", strict=False)
+        log(f"{kind}_variant_build", label=label, checkout=d, kernels=report)
+    if kind == "fwd":
+        log_fwd_design()
     for r in range(rounds):
         for label, d in variants[::-1] if r % 2 else variants:
-            proc = subprocess.run([sys.executable, "-c", FWD_VARIANT_CASES,
+            proc = subprocess.run([sys.executable, "-c", cases,
                                    label, str(r + 1)], cwd=d)
             check(proc.returncode == 0, f"variant {label} failed in round "
                                         f"{r + 1}")
@@ -2049,8 +2158,9 @@ def main() -> int:
     smi = nvidia_smi()
     log("device", name=name, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
-    if len(sys.argv) == 3 and sys.argv[1] == "--fwd-variants":
-        phase_fwd_variants(sys.argv[2])
+    flags = {f"--{kind}-variants": kind for kind in VARIANTS}
+    if len(sys.argv) == 3 and sys.argv[1] in flags:
+        phase_variants(flags[sys.argv[1]], sys.argv[2])
         print(smi, flush=True)
         return 0
     build_all(("flash_attention_fwd", "flash_attention_bwd", "lora_dropout",
@@ -2155,10 +2265,9 @@ def main() -> int:
             # step's worth of calls timed back to back (phase_lora_kernels)
             "ms": train_ms[wrapper], "ms_back_to_back": step["ms"],
             "plain_ms": step["plain_ms"], "library_ms": None,
-            "library_reason": "no single PyTorch call computes the same "
-                              "function",
             "bound_ms": step["bound_ms"], "bound_by": rec["bound_by"],
-            "per_call": {k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+            "per_call": {k: rec[k] for k in ("ms", "device_ms", "host_ms",
+                                             "plain_ms", "bound_ms",
                                              "max_abs_err",
                                              "err_of_largest")}})
     records.append({
@@ -2190,10 +2299,9 @@ def main() -> int:
         "ms": train_ms["dropout_keep_mask"],
         "ms_back_to_back": keep_step["ms"],
         "plain_ms": keep_step["plain_ms"], "library_ms": None,
-        "library_reason": "no single PyTorch call computes this hash",
         "bound_ms": keep_step["bound_ms"], "bound_by": "bytes",
-        "per_call": {k: {f: c[f] for f in ("shape", "ms", "plain_ms",
-                                           "bound_ms", "max_abs_err")}
+        "per_call": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
+                                           "max_abs_err")}
                      for k, c in keep.items()}})
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

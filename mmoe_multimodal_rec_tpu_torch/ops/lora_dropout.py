@@ -39,7 +39,9 @@ from . import cuda_lib
 from .flash_attention import _M32, _threshold
 
 _LANE = 128
-_DA_ROWS_PER_BLOCK = 256   # rows each dA block sums before the reduction
+# rows each fp32 dA block sums before the reduction, and the fewest a bf16
+# row range sums: the scratch holds ceil(M / this) partials
+_DA_ROWS_PER_BLOCK = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

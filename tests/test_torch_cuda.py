@@ -287,9 +287,11 @@ def _lora_launches():
             tld.lora_dropout_dh.launches)
 
 
-# (M, D, r): the main path's D and r with a ragged M, a small one, and an r
-# that spans three tiles with a ragged last one (the scalar load path)
-LORA_SHAPES = [(4099, 768, 8), (512, 128, 4), (300, 256, 20)]
+# (M, D, r): the main path's D and r with a ragged M, a small one, an r
+# that spans three tiles with a ragged last one (the scalar load path), and
+# M = 1 and 15, less than one 16-row tile
+LORA_SHAPES = [(4099, 768, 8), (512, 128, 4), (300, 256, 20), (1, 768, 8),
+               (15, 128, 4)]
 
 
 @pytest.mark.cuda
@@ -330,7 +332,11 @@ def test_lora_dropout_kernels_match_plain_versions(dtype, m, d, r, rate):
 def test_lora_dropout_mask_is_the_hash_dropout_stream(dtype):
     """With dt @ A^T = 1, dh = keep / (1 - rate): kernel #6 reads the mask
     back, and it must equal hash_keep_mask (bit-identical to JAX's) at every
-    position; kernel #4 with A = e_0 gives t[:, 0] = keep[:, 0] h / (1-r)."""
+    position; kernel #4 with A = e_0 gives t[:, 0] = keep[:, 0] h / (1-r).
+    On random h the dropped input keep ⊙ h·inv comes back bit for bit:
+    through #4 with a one-hot A (8 columns a call, every column) and
+    through #5 with one-hot dt rows (8 rows a call), which holds the mask,
+    the folded compare of the hash and the scaling together."""
     _need_card()
     from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld
     m, d, r, rate, seed = 1000, 256, 8, 0.3, 12345
@@ -345,6 +351,22 @@ def test_lora_dropout_mask_is_the_hash_dropout_stream(dtype):
     t = tld.lora_dropout_fwd(torch.ones(m, d, device="cuda", dtype=dt_), a,
                              seed, rate)
     assert torch.equal(t[:, 0].float() > 0.5, want[:, 0])
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    h = torch.randn(m, d, generator=gen, device="cuda").to(dt_)
+    x = tld._dropped(h, seed, rate)
+    cols = torch.arange(r, device="cuda")
+    for k in range(0, d, r):
+        onehot = torch.zeros(d, r, device="cuda", dtype=dt_)
+        onehot[k + cols, cols] = 1.0
+        assert torch.equal(tld.lora_dropout_fwd(h, onehot, seed, rate),
+                           x[:, k:k + r]), k
+    rows = torch.randperm(m, generator=gen, device="cuda")[:8 * r]
+    for k in range(0, len(rows), r):
+        onehot = torch.zeros(m, r, device="cuda", dtype=dt_)
+        onehot[rows[k:k + r], cols] = 1.0
+        assert torch.equal(tld.lora_dropout_da(h, onehot, seed, rate).t(),
+                           x[rows[k:k + r]]), k
 
 
 @pytest.mark.cuda
@@ -417,14 +439,32 @@ def test_packed_backward_matches_plain_version(l, dh, masked, rate):
 @pytest.mark.parametrize("direction,layout,l,rate", [
     ("backward", "split", 384, 0.1), ("backward", "split", 640, 0.0),
     ("backward", "packed", 197, 0.0), ("forward", "split", 384, 0.1),
-    ("forward", "packed", 197, 0.0), ("forward", "packed", 384, 0.1)])
+    ("forward", "packed", 197, 0.0), ("forward", "packed", 384, 0.1),
+    ("forward", "lora", 4099, 0.1), ("backward", "lora", 4099, 0.1)])
 def test_kernels_are_bitwise_deterministic(direction, layout, l, rate):
     """Two calls on the same inputs give the same results bit for bit.
     Backward: every sum, dQ's over the key tiles and delta's too, is taken
     in a fixed order, with no atomics.  Forward: the output and the
-    statistics (m, l), each row's sums in key order."""
+    statistics (m, l), each row's sums in key order.  LoRA (l rows, bf16,
+    D = 768, r = 8): #4's sums in column order; #5's row ranges each summed
+    in row and warp order, then the ranges in order; #6."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(7)
+    if layout == "lora":
+        from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld
+        h = torch.randn(l, 768, generator=gen, device="cuda").bfloat16()
+        a = torch.randn(768, 8, generator=gen, device="cuda").bfloat16()
+        dt = torch.randn(l, 8, generator=gen, device="cuda").bfloat16()
+        if direction == "forward":
+            run = lambda: (tld.lora_dropout_fwd(h, a, 99, rate),)
+        else:
+            run = lambda: (tld.lora_dropout_da(h, dt, 99, rate),
+                           tld.lora_dropout_dh(dt, a, 99, rate))
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
+        return
     heads, dh, hb, b = 12, 64, 6, 8
     d = heads * dh
     g = torch.randn(b, l, d, generator=gen, device="cuda").bfloat16()

@@ -11,7 +11,9 @@ exits non-zero without the final result line:
      all started together; sm_90a), with ptxas's registers and spills per
      kernel; it fails if the main path's dh-64 bf16 attention kernels (the
      three forward instantiations, the four backward ones) or its bf16 LoRA
-     forward and dA kernels spill;
+     forward, dA and dh kernels spill; the loops of the LoRA and keep mask
+     kernels, whose integer issue bounds them, counted in their SASS
+     (cuobjdump);
   3. kernels: each kernel against its plain PyTorch version at the main
      paths' shapes (bf16 in; the plain forward in fp32 on the same inputs,
      the plain backward on the same bf16 inputs), with the kernel's, the
@@ -70,9 +72,10 @@ exits non-zero without the final result line:
      attention path: loss, grad_norm and ViT layer 10-11 gradient gaps;
  10. keep_mask_kernel: #8 (the short attentions' dropout keep mask) against
      its plain version bit for bit at the main path's shapes, the text mask
-     read-back shape and a ragged lk, per call and per training step's 18
-     calls; the train and home_train phases check its launches per step and
-     that the plain version never runs on the card in their steps;
+     read-back shape and a ragged lk, per call (events, device time from
+     torch.profiler, host enqueue) and per training step's 18 calls; the
+     train and home_train phases check its launches per step and that the
+     plain version never runs on the card in their steps;
  11. eval: the checkpoint the train phase's Trainer wrote (CheckpointManager)
      restored and evaluated over synthetic shards of 200 samples (a padded
      trailing batch) at batch 64, on the host clock and under
@@ -104,6 +107,13 @@ through its own chip_smoke.py.
 does the same for the fused LoRA dropout kernels: each checkout builds
 csrc/lora_dropout.cu and runs its own phase_lora_kernels (#4-#6 at the main
 path's shape, per call and per step's calls), in turns.
+
+    python3 chip_smoke.py --keep-mask-variants 'label=[checkout];...'
+
+does the same for #8: each checkout builds csrc/dropout_keep_mask.cu and
+runs its own phase_keep_mask_kernel, then the main path's two shapes'
+device time, events and host enqueue a call, in turns.  The variants'
+build lines report the compiled loops of the LoRA and keep mask kernels.
 
 It drives the checkout it sits in, or else the one it is run
 from (python3 /elsewhere/chip_smoke.py from a checkout's root), and exits
@@ -1605,10 +1615,12 @@ def phase_home_check(text_layers: int = 2):
 def phase_keep_mask_kernel(rate: float = 0.1):
     """#8 against dropout_keep_mask_reference on the card, bit for bit, at
     every shape of KEEP_MASK_SHAPES for seeds of both signs; its time per
-    call at each shape, and one training step's calls (per micro-batch the
-    cross expert's 5 attentions at L = 64 and the fuse experts' 4 at L = 2)
-    back to back, against the plain version's and the bound: the bytes
-    written over the memory rate (it reads nothing)."""
+    call at each shape (events over calls back to back, the kernel's device
+    time from torch.profiler and the host's time to enqueue a call), and one
+    training step's calls (per micro-batch the cross expert's 5 attentions
+    at L = 64 and the fuse experts' 4 at L = 2) back to back, against the
+    plain version's and the bound: the bytes written over the memory rate
+    (it reads nothing)."""
     import torch
     from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
     seed = 987654321
@@ -1631,9 +1643,12 @@ def phase_keep_mask_kernel(rate: float = 0.1):
         plain = (lambda b=b, h=h, lq=lq, lk=lk: fa.dropout_keep_mask_reference(
             seed, b, h, lq, lk, rate, device="cuda"))
         nbytes = b * h * lq * lk
+        _, _, by_kind, _ = profiled(lambda: [kernel() for _ in range(20)])
         recs[name] = {"shape": [b, h, lq, lk], "max_abs_err": float(err),
                       "io_bytes": nbytes,
                       "ms": cuda_ms(kernel, iters=100, warmup=10),
+                      "device_ms": by_kind["dropout_keep_mask"] / 20,
+                      "host_ms": host_ms(kernel),
                       "plain_ms": cuda_ms(plain, iters=10, warmup=2),
                       "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
         fns[name] = (kernel, plain)
@@ -1976,16 +1991,72 @@ def check_spills(log_text: str, kernel_re: str, count, what: str,
 # dk/dv each; budgets 128 and 168 registers, for 4 and 3 blocks an SM), the
 # forward's (bf16, dh 64: split with statistics #2, packed with and without
 # #1; 128 registers, for 2 blocks of 2 warpgroups an SM) and the LoRA
-# dropout's bf16 forward #4 and dA #5 (128 registers, for 2 blocks of 8
-# warps an SM).  (log key, kernel name pattern, count, what)
+# dropout's bf16 forward #4, dA #5 and dh #6 (128 registers, for 2 blocks of
+# 8 warps an SM).  (log key, kernel name pattern, count, what)
 SPILL_CHECKS = {
     "flash_attention_bwd": ("dh64", r"attention_bwd_(dq|dkdv)_bf16ILi64E", 4,
                             "dh-64 bf16 backward kernels"),
     "flash_attention_fwd": ("dh64", r"attention_fwd_bf16ILi64E", 3,
                             "dh-64 bf16 forward kernels"),
-    "lora_dropout": ("bf16", r"lora_(fwd|da)_mma_kernel", 2,
-                     "bf16 LoRA forward and dA kernels"),
+    "lora_dropout": ("bf16", r"lora_(fwd|da|dh)_mma_kernel", 3,
+                     "bf16 LoRA forward, dA and dh kernels"),
 }
+# Kernels whose compiled loops build_all and the variants' builds report
+# (sass_loops), by source: integer issue bounds them.  `lora_dh_kernel`: the
+# dh body before its bf16 tensor-core kernel, for a variant built from an
+# earlier checkout.
+SASS_REPORTS = {"lora_dropout": r"lora_(fwd_mma|da_mma|dh_mma|dh)_kernel",
+                "dropout_keep_mask": r"keep_mask_kernel"}
+# SASS opcodes (before the first dot) that issue to the integer pipes
+INT_OPS = frozenset(("IADD3", "IMAD", "LOP3", "SHF", "ISETP", "LEA", "PRMT",
+                     "SEL", "IABS", "IMNMX", "VIADD", "VIMNMX", "SGXT",
+                     "BMSK", "FLO", "POPC", "MOV", "PLOP3", "P2R", "R2P"))
+
+
+def sass_loops(lib, kernel_re: str) -> dict:
+    """The compiled code (`cuobjdump -sass`) of the library's kernels whose
+    mangled names match `kernel_re`: each kernel's instruction count and,
+    for each loop (the instructions from a backward branch's target to the
+    branch, NOPs left out), its length, its instructions for the integer
+    pipes (INT_OPS), IMADs, tensor-core products and global stores, and its
+    ten most frequent opcodes."""
+    from mmoe_multimodal_rec_tpu_torch.ops import cuda_lib
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if re.search(kernel_re, m.group(1)) else None
+            if name:
+                kernels[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if name and m and m.group(2) != "NOP":
+            kernels[name].append((int(m.group(1), 16),
+                                  m.group(2).split(".")[0], m.group(3)))
+    report = {}
+    for name, code in kernels.items():
+        loops = []
+        for pc, op, rest in code:
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if op != "BRA" or not target or int(target.group(1), 16) >= pc:
+                continue
+            body = [o for at, o, _ in code
+                    if int(target.group(1), 16) <= at <= pc]
+            ops = {}
+            for o in body:
+                ops[o] = ops.get(o, 0) + 1
+            loops.append({
+                "length": len(body),
+                "int_pipe": sum(n for o, n in ops.items() if o in INT_OPS),
+                "imad": ops.get("IMAD", 0), "hmma": ops.get("HMMA", 0),
+                "stg": ops.get("STG", 0),
+                "top": sorted(ops.items(), key=lambda kv: -kv[1])[:10]})
+        report[name] = {"instructions": len(code), "loops": loops}
+    return report
 
 
 def build_all(names):
@@ -2001,6 +2072,8 @@ def build_all(names):
         if name in SPILL_CHECKS:
             key, *spec = SPILL_CHECKS[name]
             extra[key] = check_spills(text, *spec)
+        if name in SASS_REPORTS:
+            extra["sass"] = sass_loops(lib, SASS_REPORTS[name])
         log("build", source=f"csrc/{name}.cu", seconds=seconds,
             library=lib.name, ptxas=ptxas_report(text), **extra)
 
@@ -2059,13 +2132,44 @@ c.log("lora_variant", label=sys.argv[1], round=int(sys.argv[2]),
       step_ms={k: r["ms"] for k, r in step.items()})
 """
 
+# The same for #8: its build, and in each checkout phase_keep_mask_kernel
+# (every shape bit for bit, per call and per step's calls) plus, measured
+# here the same way for every checkout, the main path's two shapes' device
+# time, events and host enqueue a call, and a step's 18 calls back to back.
+KEEP_MASK_VARIANT_BUILD = """
+from mmoe_multimodal_rec_tpu_torch.ops import cuda_lib
+print(cuda_lib.build("dropout_keep_mask"))
+"""
+
+KEEP_MASK_VARIANT_CASES = """
+import sys
+import chip_smoke as c
+from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+_, step = c.phase_keep_mask_kernel()
+cases = {}
+for name in ("cross", "fuse"):
+    b, h, lq, lk = c.KEEP_MASK_SHAPES[name]
+    run = (lambda b=b, h=h, lq=lq, lk=lk: fa.dropout_keep_mask(
+        987654321, b, h, lq, lk, 0.1, device="cuda"))
+    _, _, by_kind, _ = c.profiled(lambda: [run() for _ in range(50)])
+    cases[name] = {"device_ms": by_kind["dropout_keep_mask"] / 50,
+                   "ms": c.cuda_ms(run, iters=100, warmup=10),
+                   "host_ms": c.host_ms(run)}
+c.log("keep_mask_variant", label=sys.argv[1], round=int(sys.argv[2]),
+      cases=cases, step_ms=step["ms"], step_calls=step["calls"])
+"""
+
 # --<kind>-variants: (build script, cases script, pattern of the kernels
-# whose registers and spills the build line reports, their count or None)
+# whose registers and spills the build line reports, their count or None,
+# what they are, the pattern of those whose loops it reports or None)
 VARIANTS = {
     "fwd": (FWD_VARIANT_BUILD, FWD_VARIANT_CASES, r"attention_fwd_bf16ILi64E",
-            3, "dh-64 bf16 forward kernels"),
+            3, "dh-64 bf16 forward kernels", None),
     "lora": (LORA_VARIANT_BUILD, LORA_VARIANT_CASES, r"lora_", None,
-             "LoRA dropout kernels"),
+             "LoRA dropout kernels", SASS_REPORTS["lora_dropout"]),
+    "keep-mask": (KEEP_MASK_VARIANT_BUILD, KEEP_MASK_VARIANT_CASES,
+                  r"keep_mask_kernel", 2, "keep mask kernels",
+                  SASS_REPORTS["dropout_keep_mask"]),
 }
 
 
@@ -2114,7 +2218,7 @@ def phase_variants(kind: str, spec: str, rounds: int = 2):
     order, then reversed), each runs the kind's cases in another.  Each
     variant's registers and spilled bytes are logged, not checked: a
     variant may spill."""
-    build, cases, kernel_re, count, what = VARIANTS[kind]
+    build, cases, kernel_re, count, what, sass_re = VARIANTS[kind]
     variants = []
     for item in filter(None, (x.strip() for x in spec.split(";"))):
         label, _, path = item.partition("=")
@@ -2126,10 +2230,13 @@ def phase_variants(kind: str, spec: str, rounds: int = 2):
     for (label, d), proc in zip(variants, builds):
         out = proc.communicate()[0]
         check(proc.returncode == 0, f"variant {label} did not build:\n{out}")
-        with open(out.split()[-1] + ".log") as f:
+        lib = out.split()[-1]
+        with open(lib + ".log") as f:
             report = check_spills(f.read(), kernel_re, count,
                                   f"variant {label}'s {what}", strict=False)
-        log(f"{kind}_variant_build", label=label, checkout=d, kernels=report)
+        sass = sass_loops(lib, sass_re) if sass_re else None
+        log(f"{kind}_variant_build", label=label, checkout=d, kernels=report,
+            sass=sass)
     if kind == "fwd":
         log_fwd_design()
     for r in range(rounds):
@@ -2300,7 +2407,8 @@ def main() -> int:
         "ms_back_to_back": keep_step["ms"],
         "plain_ms": keep_step["plain_ms"], "library_ms": None,
         "bound_ms": keep_step["bound_ms"], "bound_by": "bytes",
-        "per_call": {k: {f: c[f] for f in ("ms", "plain_ms", "bound_ms",
+        "per_call": {k: {f: c[f] for f in ("ms", "device_ms", "host_ms",
+                                           "plain_ms", "bound_ms",
                                            "max_abs_err")}
                      for k, c in keep.items()}})
     print(json.dumps({"kernels": records}), flush=True)

@@ -15,19 +15,39 @@
 //   keep[row, k] = hash(row * lk_pad + k) >= threshold
 // in uint32 arithmetic that wraps modulo 2^32 (row = (bi*H + hi)*lq + q, so
 // the counter is ((bi*H + hi)*lq + q)*lk_pad + k), hash the murmur3
-// finalizer of `hash_bits` below (the same as csrc/flash_attention_fwd.cu,
-// csrc/flash_attention_bwd.cu and csrc/lora_dropout.cu compute), threshold
-// = uint32(rate * (2^32 - 1)).  Bit-identical to the JAX interpret-mode
-// stream.
+// finalizer of ops/flash_attention.py:_hash_bits (the same as
+// csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu and
+// csrc/lora_dropout.cu compute), threshold = uint32(rate * (2^32 - 1)).
+// Bit-identical to the JAX interpret-mode stream.
 //
-// Bound on this card: it reads nothing and writes rows*lk bytes, 4 integer
-// multiplies an element.  At the main path's shapes ([64, 8, 64, 64], 2.1
-// MB, and [64, 8, 2, 2], 2 KB) the bytes take 0.6 us and 0.6 ns at 3.35
-// TB/s, so a call is bound by its launch (a few us), not by the card.  The
-// design is the simple one: one thread per run of 16 consecutive keys of a
-// row, stored as one 16-byte vector where lk is a multiple of 16 (rows then
-// start 16-byte aligned), byte by byte elsewhere (lk = 2, or a ragged lk);
-// a grid-stride loop covers any size.
+// Bound on this card: it reads nothing and writes rows*lk bytes.  At the
+// main path's shapes ([64, 8, 64, 64], 2.1 MB, and [64, 8, 2, 2], 2 KB) the
+// bytes take 0.63 us and 0.6 ns at 3.35 TB/s, but the hash takes longer:
+// the SMs issue 64 integer lanes a clock, so at 2.1 M keys each integer
+// instruction a key costs ~0.13 us at 1.98 GHz.  The first port spent ~13
+// a key (a multiply for each counter, the hash's last xor-shift, a shift
+// and an OR to pack each byte) and a 64-bit division by a runtime value
+// for every 16 keys.  The design:
+// - no division: a block is blockDim.x runs of 16 keys of a row (all of a
+//   row's runs when they fit, else a block-stride walk over them) times
+//   blockDim.y rows, so a thread's row and run are its block's and thread's
+//   indices;
+// - the hash input walked by addition: x = row * (lk_pad * kGolden) + seed
+//   + k * kGolden (uint32, wrapping as the counter does), so a key costs
+//   one add with an immediate instead of a multiply;
+// - the hash's last xor-shift folded into the compare, as in
+//   csrc/lora_dropout.cu's `keep_x` (the proof is there);
+// - each byte set by one predicated OR of its bit into the word.
+// That leaves ~10 integer instructions a key (the add, the hash's 2 shifts,
+// 3 xors and 2 multiplies, the compare, the OR): the compiled 16-key loop
+// issues 166 to the integer pipes, where the first port's issued 235, its
+// division included.  A run is stored as one 16-byte vector where lk is a
+// multiple of 16 (rows then start 16-byte aligned), byte by byte elsewhere
+// (lk = 2, or a ragged lk).  On an H100 SXM at 700 W a call at the cross
+// shape takes 2.0 us of device time (2.4 before), of which ~1.1 is the
+// floor a kernel of a few blocks shows (the fuse shape's time, bound by its
+// launch whatever the body).  Packing the bytes with `prmt` (a select a key
+// and three `prmt` a word), 8 keys a thread or 64 were all slower.
 //
 // C interface (ctypes): mmoe_dropout_keep_mask returns cudaError_t as an
 // int; 0 means the launch was accepted.  It launches on the given stream,
@@ -39,51 +59,58 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int RUN = 16;        // keys a thread writes: one 16-byte vector
-constexpr int MAX_BLOCKS = 4096;
+constexpr int RUN = 16;  // keys a thread writes: one 16-byte vector
+constexpr uint32_t kGolden = 2654435761u;
 
-// ops/flash_attention.py:_hash_bits over one uint32 counter.
-__device__ __forceinline__ uint32_t hash_bits(uint32_t x, uint32_t seed) {
-  x = x * 2654435761u + seed;
+struct Params {
+  long long rows;
+  int lk, runs;
+  uint32_t row_step;  // lk_pad * kGolden: the hash input's step a row
+  uint32_t seed, threshold;
+  uint32_t thr_hi;    // threshold >> 16
+};
+
+// ops/flash_attention.py:_hash_bits(i) >= threshold from the hash input
+// x = i * kGolden + seed, the last xor-shift folded into the compare.
+__device__ __forceinline__ bool keep_x(uint32_t x, const Params& p) {
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
+  return (x ^ p.thr_hi) >= p.threshold;
+}
+
+// The bytes (0 or 1) of 4 consecutive keys, the first with hash input x.
+__device__ __forceinline__ uint32_t keep4(uint32_t x, const Params& p) {
+  uint32_t w = 0u;
+  if (keep_x(x, p)) w |= 0x1u;
+  if (keep_x(x + kGolden, p)) w |= 0x100u;
+  if (keep_x(x + 2u * kGolden, p)) w |= 0x10000u;
+  if (keep_x(x + 3u * kGolden, p)) w |= 0x1000000u;
+  return w;
 }
 
 // VEC: lk % 16 == 0, every run is 16 whole keys and 16-byte aligned.
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
-    keep_mask_kernel(uint8_t* __restrict__ out, long long rows, int lk,
-                     int lk_pad, int runs, uint32_t seed,
-                     uint32_t threshold) {
-  const long long total = rows * runs;
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-       i < total; i += stride) {
-    const long long row = i / runs;
-    const int k0 = (int)(i - row * runs) * RUN;
-    // the counter wraps modulo 2^32, as the JAX kernel's uint32 does
-    const uint32_t base = (uint32_t)row * (uint32_t)lk_pad + (uint32_t)k0;
-    uint8_t* dst = out + row * lk + k0;
+    keep_mask_kernel(uint8_t* __restrict__ out, const Params p) {
+  const long long row = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  if (row >= p.rows) return;
+  uint8_t* dst = out + row * p.lk;
+  // the counter row * lk_pad + k wraps modulo 2^32, as the JAX kernel's
+  // uint32 does; so does its product with kGolden
+  const uint32_t xrow = (uint32_t)row * p.row_step + p.seed;
+  for (int run = threadIdx.x; run < p.runs; run += blockDim.x) {
+    const int k0 = run * RUN;
+    const uint32_t x = xrow + (uint32_t)k0 * kGolden;
     if (VEC) {
-      uint32_t w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t word = 0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          word |= (uint32_t)(hash_bits(base + 4 * j + e, seed) >= threshold)
-                  << (8 * e);
-        w[j] = word;
-      }
-      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(dst + k0) =
+          make_uint4(keep4(x, p), keep4(x + 4u * kGolden, p),
+                     keep4(x + 8u * kGolden, p), keep4(x + 12u * kGolden, p));
     } else {
-      const int n = lk - k0 < RUN ? lk - k0 : RUN;
+      const int n = p.lk - k0 < RUN ? p.lk - k0 : RUN;
       for (int e = 0; e < n; ++e)
-        dst[e] = hash_bits(base + (uint32_t)e, seed) >= threshold;
+        dst[k0 + e] = keep_x(x + (uint32_t)e * kGolden, p);
     }
   }
 }
@@ -97,17 +124,23 @@ extern "C" int mmoe_dropout_keep_mask(void* out, long long rows, int lk,
                                       int lk_pad, unsigned int seed,
                                       unsigned int threshold, void* stream) {
   if (rows <= 0 || lk <= 0 || lk_pad <= 0) return (int)cudaErrorInvalidValue;
-  const int runs = (lk + RUN - 1) / RUN;
-  const long long total = rows * runs;
-  const long long want = (total + THREADS - 1) / THREADS;
-  const int blocks = (int)(want < MAX_BLOCKS ? want : MAX_BLOCKS);
+  Params p;
+  p.rows = rows;
+  p.lk = lk;
+  p.runs = (lk + RUN - 1) / RUN;
+  p.row_step = (uint32_t)lk_pad * kGolden;
+  p.seed = seed;
+  p.threshold = threshold;
+  p.thr_hi = threshold >> 16;
+  const int tx = p.runs < THREADS ? p.runs : THREADS;
+  const int ty = THREADS / tx;
+  const long long blocks = (rows + ty - 1) / ty;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint8_t* o = static_cast<uint8_t*>(out);
   if (lk % RUN == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0)
-    keep_mask_kernel<true><<<blocks, THREADS, 0, s>>>(o, rows, lk, lk_pad,
-                                                      runs, seed, threshold);
+    keep_mask_kernel<true><<<(unsigned)blocks, dim3(tx, ty), 0, s>>>(o, p);
   else
-    keep_mask_kernel<false><<<blocks, THREADS, 0, s>>>(o, rows, lk, lk_pad,
-                                                       runs, seed, threshold);
+    keep_mask_kernel<false><<<(unsigned)blocks, dim3(tx, ty), 0, s>>>(o, p);
   return (int)cudaGetLastError();
 }

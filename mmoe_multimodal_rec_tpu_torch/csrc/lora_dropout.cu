@@ -30,13 +30,14 @@
 // rows.  The design below needs 10 integer instructions an element for the
 // mask and the masking (the hash's 2 shifts, 3 xors, 2 multiplies and
 // compare; the index add; the masking AND); the compiled loops spend 14-16
-// with addressing and register moves, and on an H100 SXM at 700 W the
-// kernels take 33 (fwd) and 34 + 2 (dA and its reduction) us of device
-// time: integer throughput, not bytes, still bounds them.  Moving the
-// shifts to the multiply pipe (`__umulhi`) or unrolling the loop twice (no
-// register moves, twice the code) made both slower.
+// with addressing and register moves (dh's 11: it loads nothing an
+// element), and on an H100 SXM at 700 W the kernels take 33 (fwd), 34 + 2
+// (dA and its reduction) and 30 (dh) us of device time: integer
+// throughput, not bytes, still bounds them.  Moving the shifts to the
+// multiply pipe (`__umulhi`) or unrolling the loop twice (no register
+// moves, twice the code) made fwd and dA slower.
 //
-// The bf16 design (the main path's instantiations):
+// The bf16 design (the main path's kernels):
 // - Products on the tensor cores, `mma.sync.m16n8k16` bf16 x bf16 -> fp32,
 //   one n tile per 8 columns of r (r = 8: one; a ragged last tile is
 //   padded with zero columns).  A product's k order is free as long as both
@@ -77,6 +78,17 @@
 //   in 16 KB of shared memory, in warp order, and the block writes fp32
 //   partials [ranges, D, r]; `lora_da_reduce_kernel` sums the ranges in
 //   order.  No atomics: two calls give the same bits.
+// - dh (`lora_dh_mma_kernel`): dt @ A^T with dt's 16-row tile as the A
+//   operand (`mma.sync.m16n8k8`, k = r = 8 in one step; a ragged r pads k
+//   with zeros, a larger one takes more steps) and A's rows as B.  Each warp
+//   owns a slab of 128 columns, keeps its 16 B fragments in registers and
+//   walks 16-row tiles down M, so A is read once a warp and dt 4 bytes a
+//   lane a row.  Product j of a 32-column group maps its n = 2c + e to
+//   column 8c + 2j + e, so a lane's 16 sums are 8 neighbouring columns of
+//   two rows: each is scaled in fp32, rounded to bf16 in pairs, masked by
+//   `keep_x` (a dropped half zeroed) and stored as one 16-byte vector, with
+//   no staging.  The card's blocks are shared by the slabs, each slab's
+//   tiles round-robin over its blocks, one wave.
 // The fp32 instantiations (card tests, lora_check, an fp32 model) keep
 // CUDA-core bodies with the same hash (`keep_x`): TF32 products would miss
 // fp32's limits.
@@ -87,10 +99,9 @@
 // - dA: a block sums rows_per_block rows (8 warps, interleaved rows) for
 //   one tile of 32 x 16-byte column vectors; its warps' partials meet in
 //   shared memory in a fixed order, then the ordered reduction.
-// - dh (both dtypes): each warp takes 4 rows at a time; each lane builds
-//   4 x 8 outputs (one 16-byte vector of each row) from dt and A (A is tiny
-//   and stays in L1), applies the mask and the scale and stores 16 bytes a
-//   row.
+// - dh: each warp takes 4 rows at a time; each lane builds 4 x 4 outputs
+//   (one 16-byte vector of each row) from dt and A (A is tiny and stays in
+//   L1), applies the mask and the scale and stores 16 bytes a row.
 // Rows past M (a ragged last tile) and columns past D or r are masked by
 // bounds; D must be a multiple of 8 (whole 16-byte bf16 vectors).
 //
@@ -120,6 +131,8 @@ constexpr int FWD_COLS = 128;    // columns of h a fwd warp reads per step
 constexpr int AT_PAD = 32;       // bf16 padding of each row of A^T in smem
 constexpr int DA_ROWS = 32;      // rows of h a dA warp reads per step
 constexpr int DA_SLAB = 64;      // columns of h a dA block covers
+constexpr int DH_SLAB = 128;     // columns of dh a bf16 dh warp owns
+constexpr int DH_GROUPS = DH_SLAB / 32;
 
 constexpr uint32_t kGolden = 2654435761u;
 
@@ -161,7 +174,6 @@ struct Vec {
   static constexpr int N = 16 / sizeof(T);  // elements per 16-byte vector
 };
 
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(float x) { return x; }
 
 template <typename T>
@@ -363,6 +375,63 @@ lora_da_f32_kernel(const Params p, const float* __restrict__ h,
     const int j = j0 + k % RT;
     if (vv < nvec && j < p.R)
       partial[((size_t)blockIdx.x * p.D + vv * N + k / RT) * p.R + j] = s;
+  }
+}
+
+// dh = keep * (dt @ A^T) * g_scale, fp32: each warp takes RW rows at a time;
+// each lane builds RW x 4 outputs (one 16-byte vector of each row) from dt
+// and A (A is tiny and stays in L1), applies the mask and the scale and
+// stores 16 bytes a row.
+__global__ void __launch_bounds__(THREADS)
+lora_dh_f32_kernel(const Params p, const float* __restrict__ dt,
+                   const float* __restrict__ a, float* __restrict__ dh) {
+  constexpr int N = Vec<float>::N;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int nvec = p.D / N;
+  const int ngroups = (p.M + RW - 1) / RW;
+  for (int g = blockIdx.x * WARPS + warp; g < ngroups;
+       g += gridDim.x * WARPS) {
+    const int m0 = g * RW;
+    for (int v = lane; v < nvec; v += 32) {
+      const int c0 = v * N;
+      float acc[RW][N];
+#pragma unroll
+      for (int rr = 0; rr < RW; ++rr)
+#pragma unroll
+        for (int i = 0; i < N; ++i) acc[rr][i] = 0.0f;
+      for (int j0 = 0; j0 < p.R; j0 += RT) {
+        float dv[RW][RT];
+#pragma unroll
+        for (int rr = 0; rr < RW; ++rr) {
+          const int m = m0 + rr < p.M ? m0 + rr : p.M - 1;
+          load8<float>(dv[rr], dt + (size_t)m * p.R + j0, p.R - j0);
+        }
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          float av[RT];
+          load8<float>(av, a + (size_t)(c0 + i) * p.R + j0, p.R - j0);
+#pragma unroll
+          for (int rr = 0; rr < RW; ++rr)
+#pragma unroll
+            for (int j = 0; j < RT; ++j) acc[rr][i] += dv[rr][j] * av[j];
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < RW; ++rr) {
+        const int m = m0 + rr;
+        if (m >= p.M) continue;
+        const uint32_t x =
+            hash_x((uint32_t)m * (uint32_t)p.D + (uint32_t)c0, p);
+        float out[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          out[i] = keep_x(x + (uint32_t)i * kGolden, p)
+                       ? acc[rr][i] * p.scale
+                       : 0.0f;
+        store_vec<float>(dh + (size_t)m * p.D + c0, out);
+      }
+    }
   }
 }
 
@@ -695,58 +764,146 @@ lora_da_reduce_kernel(const float* __restrict__ partial, T* __restrict__ da,
   da[i] = from_f<T>(s);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-lora_dh_kernel(const Params p, const T* __restrict__ dt,
-               const T* __restrict__ a, T* __restrict__ dh) {
-  constexpr int N = Vec<T>::N;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int nvec = p.D / N;
-  const int ngroups = (p.M + RW - 1) / RW;
-  for (int g = blockIdx.x * WARPS + warp; g < ngroups;
-       g += gridDim.x * WARPS) {
-    const int m0 = g * RW;
-    for (int v = lane; v < nvec; v += 32) {
-      const int c0 = v * N;
-      float acc[RW][N];
+// c += A @ B, m16n8k8: A 16 x 8 (a0: row g, a1: row g + 8, k 2c..2c+1),
+// B 8 x 8 (b: k 2c..2c+1, column g), c as mma16816's.
+__device__ __forceinline__ void mma1688(float (&c)[4], uint32_t a0,
+                                        uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// x[row][k], x[row][k + 1] of a row-major [rows, R] bf16 matrix as one pair
+// (k in the low half), k even; zero past rows or R.
+__device__ __forceinline__ uint32_t pair_at(const bf16* __restrict__ x,
+                                            int row, int rows, int k, int R) {
+  if (row >= rows || k >= R) return 0u;
+  const unsigned short* u =
+      reinterpret_cast<const unsigned short*>(x) + (size_t)row * R + k;
+  if ((R & 1) == 0) return __ldg(reinterpret_cast<const unsigned int*>(u));
+  const uint32_t lo = __ldg(u);
+  return k + 1 < R ? lo | ((uint32_t)__ldg(u + 1) << 16) : lo;
+}
+
+// dh of two neighbouring columns: (v0, v1) * g_scale rounded once to a bf16
+// pair (v0 in the low half), a dropped half zeroed; x: v0's hash input.
+__device__ __forceinline__ uint32_t dh_pair(float v0, float v1, uint32_t x,
+                                            const Params& p) {
+  const __nv_bfloat162 w2 = __floats2bfloat162_rn(v0 * p.scale, v1 * p.scale);
+  uint32_t w = *reinterpret_cast<const uint32_t*>(&w2);
+  if (!keep_x(x, p)) w &= 0xFFFF0000u;
+  if (!keep_x(x + kGolden, p)) w &= 0x0000FFFFu;
+  return w;
+}
+
+// One warp's walk of dh's 16-row tiles tile, tile + tile_step, ... over its
+// slab of DH_SLAB columns from col0 (DH_GROUPS groups of 32).  Product j of
+// group q gives lane (g, c) the sums of rows g and g + 8 at n = 2c, 2c + 1;
+// B's column n is mapped to column 8 (n / 2) + 2j + n % 2 of the group, so
+// over j = 0..3 the lane holds columns 8c .. 8c + 8 of both rows, one
+// 16-byte store each.  kOneStep (R <= 8, one k step): the slab's B
+// fragments stay in registers and the next tile's A fragments are loaded
+// before the current tile is stored; otherwise every k step's fragments are
+// loaded per tile (from L1: A and dt are small).
+template <bool kOneStep>
+__device__ __forceinline__ void dh_walk(const Params& p,
+                                        const bf16* __restrict__ dt,
+                                        const bf16* __restrict__ a,
+                                        bf16* __restrict__ dh, int tile,
+                                        int tile_step, int ntiles, int col0,
+                                        int g, int c) {
+  uint32_t b[DH_GROUPS][4];
+  bool col_in[DH_GROUPS];
 #pragma unroll
-      for (int rr = 0; rr < RW; ++rr)
+  for (int q = 0; q < DH_GROUPS; ++q) {
+    col_in[q] = col0 + 32 * q + 8 * c < p.D;
 #pragma unroll
-        for (int i = 0; i < N; ++i) acc[rr][i] = 0.0f;
-      for (int j0 = 0; j0 < p.R; j0 += RT) {
-        float dv[RW][RT];
-#pragma unroll
-        for (int rr = 0; rr < RW; ++rr) {
-          const int m = m0 + rr < p.M ? m0 + rr : p.M - 1;
-          load8<T>(dv[rr], dt + (size_t)m * p.R + j0, p.R - j0);
-        }
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          float av[RT];
-          load8<T>(av, a + (size_t)(c0 + i) * p.R + j0, p.R - j0);
-#pragma unroll
-          for (int rr = 0; rr < RW; ++rr)
-#pragma unroll
-            for (int j = 0; j < RT; ++j) acc[rr][i] += dv[rr][j] * av[j];
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < RW; ++rr) {
-        const int m = m0 + rr;
-        if (m >= p.M) continue;
-        const uint32_t x =
-            hash_x((uint32_t)m * (uint32_t)p.D + (uint32_t)c0, p);
-        float out[N];
-#pragma unroll
-        for (int i = 0; i < N; ++i)
-          out[i] = keep_x(x + (uint32_t)i * kGolden, p)
-                       ? acc[rr][i] * p.scale
-                       : 0.0f;
-        store_vec<T>(dh + (size_t)m * p.D + c0, out);
-      }
-    }
+    for (int j = 0; j < 4; ++j)
+      b[q][j] = kOneStep ? pair_at(a, col0 + 32 * q + 8 * (g >> 1) + 2 * j +
+                                          (g & 1),
+                                   p.D, 2 * c, p.R)
+                         : 0u;
   }
+  const uint32_t xc = p.seed + (uint32_t)(col0 + 8 * c) * kGolden;
+  uint32_t a0 = 0u, a1 = 0u;
+  if (kOneStep) {
+    a0 = pair_at(dt, tile * TILE + g, p.M, 2 * c, p.R);
+    a1 = pair_at(dt, tile * TILE + g + 8, p.M, 2 * c, p.R);
+  }
+  for (;;) {
+    const int m = tile * TILE + g;
+    const int next = tile + tile_step;
+    uint32_t n0 = 0u, n1 = 0u;
+    if (kOneStep && next < ntiles) {
+      n0 = pair_at(dt, next * TILE + g, p.M, 2 * c, p.R);
+      n1 = pair_at(dt, next * TILE + g + 8, p.M, 2 * c, p.R);
+    }
+    const uint32_t xr0 = (uint32_t)m * p.dk + xc;
+    const uint32_t xr1 = xr0 + 8u * p.dk;
+    bf16* row0 = dh + (size_t)m * p.D + col0 + 8 * c;
+    bf16* row1 = row0 + (size_t)8 * p.D;
+#pragma unroll
+    for (int q = 0; q < DH_GROUPS; ++q) {
+      float acc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+      if (kOneStep) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma1688(acc[j], a0, a1, b[q][j]);
+      } else {
+        for (int k = 2 * c; k < p.R + 2 * c; k += RT) {
+          const uint32_t f0 = pair_at(dt, m, p.M, k, p.R);
+          const uint32_t f1 = pair_at(dt, m + 8, p.M, k, p.R);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma1688(acc[j], f0, f1,
+                    pair_at(a, col0 + 32 * q + 8 * (g >> 1) + 2 * j + (g & 1),
+                            p.D, k, p.R));
+        }
+      }
+      if (!col_in[q]) continue;
+      const uint32_t xq = (uint32_t)(32 * q) * kGolden;
+      if (m < p.M)
+        *reinterpret_cast<uint4*>(row0 + 32 * q) = make_uint4(
+            dh_pair(acc[0][0], acc[0][1], xr0 + xq, p),
+            dh_pair(acc[1][0], acc[1][1], xr0 + xq + 2 * kGolden, p),
+            dh_pair(acc[2][0], acc[2][1], xr0 + xq + 4 * kGolden, p),
+            dh_pair(acc[3][0], acc[3][1], xr0 + xq + 6 * kGolden, p));
+      if (m + 8 < p.M)
+        *reinterpret_cast<uint4*>(row1 + 32 * q) = make_uint4(
+            dh_pair(acc[0][2], acc[0][3], xr1 + xq, p),
+            dh_pair(acc[1][2], acc[1][3], xr1 + xq + 2 * kGolden, p),
+            dh_pair(acc[2][2], acc[2][3], xr1 + xq + 4 * kGolden, p),
+            dh_pair(acc[3][2], acc[3][3], xr1 + xq + 6 * kGolden, p));
+    }
+    if (next >= ntiles) break;
+    tile = next;
+    a0 = n0;
+    a1 = n1;
+  }
+}
+
+// dh = keep * (dt @ A^T) * g_scale, bf16, for the slab of DH_SLAB columns
+// blockIdx.y.  Block b's warps take tiles b, b + G, b + 2G, ... (G =
+// gridDim.x) in turn, warp w the (w + WARPS k)-th of them, as in the fwd
+// kernel.
+__global__ void __launch_bounds__(THREADS, MMA_BLOCKS)
+lora_dh_mma_kernel(const Params p, const bf16* __restrict__ dt,
+                   const bf16* __restrict__ a, bf16* __restrict__ dh) {
+  const int lane = threadIdx.x % 32;
+  const int ntiles = (p.M + TILE - 1) / TILE;
+  const int tile = blockIdx.x + gridDim.x * (threadIdx.x / 32);
+  if (tile >= ntiles) return;
+  const int col0 = blockIdx.y * DH_SLAB;
+  if (p.R <= RT)
+    dh_walk<true>(p, dt, a, dh, tile, gridDim.x * WARPS, ntiles, col0,
+                  lane / 4, lane % 4);
+  else
+    dh_walk<false>(p, dt, a, dh, tile, gridDim.x * WARPS, ntiles, col0,
+                   lane / 4, lane % 4);
 }
 
 // ---------------------------------------------------------------------------
@@ -905,16 +1062,33 @@ cudaError_t da_bf16(const Params& p, const void* h, const void* dt,
   return da_reduce<bf16>(partial, out, ranges, p, s);
 }
 
-template <typename T>
-cudaError_t dh(const Params& p, const void* dt, const void* a, void* out,
-               cudaStream_t s) {
+cudaError_t dh_f32(const Params& p, const void* dt, const void* a, void* out,
+                   cudaStream_t s) {
   int blocks = 0;
-  cudaError_t err = persistent_blocks(lora_dh_kernel<T>, 0,
+  cudaError_t err = persistent_blocks(lora_dh_f32_kernel, 0,
                                       cdiv(cdiv(p.M, RW), WARPS), &blocks);
   if (err != cudaSuccess) return err;
-  lora_dh_kernel<T><<<blocks, THREADS, 0, s>>>(
-      p, static_cast<const T*>(dt), static_cast<const T*>(a),
-      static_cast<T*>(out));
+  lora_dh_f32_kernel<<<blocks, THREADS, 0, s>>>(
+      p, static_cast<const float*>(dt), static_cast<const float*>(a),
+      static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+// One wave: the card's blocks shared equally by the slabs, each slab's
+// tiles round-robin over its blocks.
+cudaError_t dh_bf16(const Params& p, const void* dt, const void* a, void* out,
+                    cudaStream_t s) {
+  int blocks = 0;
+  cudaError_t err = card_blocks(lora_dh_mma_kernel, 0, &blocks);
+  if (err != cudaSuccess) return err;
+  const int slabs = cdiv(p.D, DH_SLAB);
+  int per_slab = blocks / slabs;
+  if (per_slab > cdiv(cdiv(p.M, TILE), WARPS))
+    per_slab = cdiv(cdiv(p.M, TILE), WARPS);
+  if (per_slab < 1) per_slab = 1;
+  lora_dh_mma_kernel<<<dim3(per_slab, slabs), THREADS, 0, s>>>(
+      p, static_cast<const bf16*>(dt), static_cast<const bf16*>(a),
+      static_cast<bf16*>(out));
   return cudaGetLastError();
 }
 
@@ -966,7 +1140,7 @@ extern "C" int mmoe_lora_dropout_dh(const void* dt, const void* a,
   if (!shape_ok(M, D, R)) return (int)cudaErrorInvalidValue;
   const Params p = make_params(M, D, R, seed, threshold, g_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dh<bf16>(p, dt, a, dh_out, s);
-  if (dtype == 0) return dh<float>(p, dt, a, dh_out, s);
+  if (dtype == 1) return dh_bf16(p, dt, a, dh_out, s);
+  if (dtype == 0) return dh_f32(p, dt, a, dh_out, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -72,3 +73,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def function(lib_name: str, fn_name: str, argtypes) -> Callable[..., int]:
+    """The C function `fn_name` of csrc/<lib_name>.cu, returning an int,
+    with its argument types set.  Bound at its first use and kept, so a
+    launch takes neither `load`'s lock nor a lookup in the library."""
+    fn = _fns.get((lib_name, fn_name))
+    if fn is None:
+        fn = getattr(load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(lib_name, fn_name)] = fn
+    return fn

@@ -254,18 +254,11 @@ def flash_attention_packed_bwd_reference(qkv, pad_mask, seed: Optional[int],
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _bind(lib_name: str, fn_name: str, argtypes):
-    fn = getattr(cuda_lib.load(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _FWD_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _U, _U, _F, _I, _P]
 _BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _U, _U, _F, _I, _P]
 _PACKED_BWD_ARGTYPES = [_P] * 6 + [_I] * 7 + [_F, _U, _U, _F, _I, _P]
+_KEEP_MASK_ARGTYPES = [_P, ctypes.c_longlong, _I, _I, _U, _U, _P]
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -317,8 +310,23 @@ def _dropout_args(seed: Optional[int], rate: float):
     return (seed or 0) & _M32, _threshold(rate), 1.0 / (1.0 - rate), 1
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _launch(what: str, device: torch.device, fn, *args) -> None:
+    """fn(*args, stream): a kernel launched through its C interface on the
+    current stream of `device` (a CUDA tensor's, so its index is set);
+    raises with the CUDA error it returns.  The runtime launches on the
+    calling thread's current device, so `device` is made current for the
+    call only where it is not already.  The stream's handle comes straight
+    from PyTorch's C API: building a torch.cuda.Stream for it, like
+    entering torch.cuda.device, costs the host more than a short kernel
+    takes on the card."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 def _launch_fwd(q, k_ptr: int, v_ptr: int, pad, out, stats, n_heads: int,
@@ -326,18 +334,14 @@ def _launch_fwd(q, k_ptr: int, v_ptr: int, pad, out, stats, n_heads: int,
                 seed, rate: float) -> None:
     b, l = q.shape[:2]
     dh = out.shape[-1] // n_heads
-    fn = _bind("flash_attention_fwd", "mmoe_flash_attention_fwd",
-               _FWD_ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_ptr, v_ptr,
-                 None if pad is None else pad.data_ptr(), out.data_ptr(),
-                 None if stats is None else stats.data_ptr(),
-                 _DTYPE_CODES[q.dtype], b, l, n_heads, hb, dh, row_stride,
-                 group_stride, lk_pad, 1.0 / math.sqrt(dh),
-                 *_dropout_args(seed, rate), _stream(q.device))
-    if err:
-        raise RuntimeError(f"flash attention forward launch failed: CUDA "
-                           f"error {err}")
+    fn = cuda_lib.function("flash_attention_fwd", "mmoe_flash_attention_fwd",
+                           _FWD_ARGTYPES)
+    _launch("flash attention forward", q.device, fn, q.data_ptr(), k_ptr,
+            v_ptr, None if pad is None else pad.data_ptr(), out.data_ptr(),
+            None if stats is None else stats.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, l, n_heads, hb, dh, row_stride,
+            group_stride, lk_pad, 1.0 / math.sqrt(dh),
+            *_dropout_args(seed, rate))
 
 
 # ---------------------------------------------------------------------------
@@ -405,17 +409,14 @@ def flash_attention_packed_bwd(qkv, pad_mask, seed: Optional[int], dout,
     delta = torch.empty((b, n_heads, l), dtype=torch.float32,
                         device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    fn = _bind("flash_attention_bwd", "mmoe_flash_attention_bwd_packed",
-               _PACKED_BWD_ARGTYPES)
-    with torch.cuda.device(qkv.device):
-        err = fn(qkv.data_ptr(), None if pad is None else pad.data_ptr(),
-                 dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
-                 dqkv.data_ptr(), _DTYPE_CODES[qkv.dtype], b, l, n_heads, hb,
-                 dh, l, 1.0 / math.sqrt(dh),
-                 *_dropout_args(seed, dropout_rate), _stream(qkv.device))
-    if err:
-        raise RuntimeError(f"flash_attention_packed_bwd launch failed: CUDA "
-                           f"error {err}")
+    fn = cuda_lib.function("flash_attention_bwd",
+                           "mmoe_flash_attention_bwd_packed",
+                           _PACKED_BWD_ARGTYPES)
+    _launch("flash_attention_packed_bwd", qkv.device, fn, qkv.data_ptr(),
+            None if pad is None else pad.data_ptr(), dout.data_ptr(),
+            stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+            _DTYPE_CODES[qkv.dtype], b, l, n_heads, hb, dh, l,
+            1.0 / math.sqrt(dh), *_dropout_args(seed, dropout_rate))
     flash_attention_packed_bwd.launches += 1
     return dqkv
 
@@ -518,19 +519,14 @@ def flash_attention_bwd(q, k, v, pad_mask, seed: Optional[int], dout,
     delta = torch.empty((b, n_heads, l), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dh = d // n_heads
-    fn = _bind("flash_attention_bwd", "mmoe_flash_attention_bwd",
-               _BWD_ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if pad is None else pad.data_ptr(),
-                 dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 _DTYPE_CODES[q.dtype], b, l, n_heads, dh, _lk_padded(l),
-                 1.0 / math.sqrt(dh), *_dropout_args(seed, dropout_rate),
-                 _stream(q.device))
-    if err:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{err}")
+    fn = cuda_lib.function("flash_attention_bwd", "mmoe_flash_attention_bwd",
+                           _BWD_ARGTYPES)
+    _launch("flash_attention_bwd", q.device, fn, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), None if pad is None else pad.data_ptr(),
+            dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, l, n_heads, dh, _lk_padded(l),
+            1.0 / math.sqrt(dh), *_dropout_args(seed, dropout_rate))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -590,24 +586,20 @@ def dropout_keep_mask(seed: int, b: int, h: int, lq: int, lk: int,
     kernel (csrc/dropout_keep_mask.cu), which writes the same bits, or
     raises.  The short attentions' weight dropout draws it in every
     training forward (models/layers._dot_product_attention)."""
-    device = torch.device(device)
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
     if device.type == "cpu":
         return dropout_keep_mask_reference(seed, b, h, lq, lk, rate,
                                            lk_padded=lk_padded, device=device)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    lk_p = lk_padded or _lk_padded(lk)
     out = torch.empty((b, h, lq, lk), dtype=torch.bool, device=device)
     if out.numel() == 0:
         return out
-    fn = _bind("dropout_keep_mask", "mmoe_dropout_keep_mask",
-               [_P, ctypes.c_longlong, _I, _I, _U, _U, _P])
-    with torch.cuda.device(device):
-        err = fn(out.data_ptr(), b * h * lq, lk, lk_p, seed & _M32,
-                 _threshold(rate), _stream(device))
-    if err:
-        raise RuntimeError(f"dropout_keep_mask launch failed: CUDA error "
-                           f"{err}")
+    fn = cuda_lib.function("dropout_keep_mask", "mmoe_dropout_keep_mask",
+                           _KEEP_MASK_ARGTYPES)
+    _launch("dropout_keep_mask", out.device, fn, out.data_ptr(), b * h * lq,
+            lk, lk_padded or _lk_padded(lk), seed & _M32, _threshold(rate))
     dropout_keep_mask.launches += 1
     return out
 

@@ -37,6 +37,7 @@ import torch
 
 from . import cuda_lib
 from .flash_attention import _M32, _threshold
+from .flash_attention import _launch as _launch_on
 
 _LANE = 128
 # rows each fp32 dA block sums before the reduction, and the fewest a bf16
@@ -127,14 +128,6 @@ _ARGTYPES = {
 }
 
 
-def _bind(fn_name: str):
-    fn = getattr(cuda_lib.load("lora_dropout"), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[fn_name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_cuda(name: str, x: torch.Tensor, a: torch.Tensor) -> None:
     """What the kernels refuse: a dtype other than bf16/fp32, operands on
     two devices, non-contiguous or misaligned tensors, a D that is not a
@@ -151,11 +144,8 @@ def _check_cuda(name: str, x: torch.Tensor, a: torch.Tensor) -> None:
 
 
 def _launch(fn_name: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        err = _bind(fn_name)(*args,
-                             torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    _launch_on(fn_name, device, cuda_lib.function(
+        "lora_dropout", fn_name, _ARGTYPES[fn_name]), *args)
 
 
 def _mask_args(seed: int, rate: float):

@@ -289,9 +289,12 @@ def _lora_launches():
 
 # (M, D, r): the main path's D and r with a ragged M, a small one, an r
 # that spans three tiles with a ragged last one (the scalar load path), and
-# M = 1 and 15, less than one 16-row tile
+# M = 1 and 15, less than one 16-row tile; a D that is no multiple of the
+# bf16 dh kernel's 128-column slab, D = 1024, r = 16 (two whole k steps of
+# the bf16 dh kernel) and M one past a 16-row tile
 LORA_SHAPES = [(4099, 768, 8), (512, 128, 4), (300, 256, 20), (1, 768, 8),
-               (15, 128, 4)]
+               (15, 128, 4), (512, 200, 8), (256, 1024, 8), (300, 768, 16),
+               (4097, 768, 8)]
 
 
 @pytest.mark.cuda
@@ -367,6 +370,23 @@ def test_lora_dropout_mask_is_the_hash_dropout_stream(dtype):
         onehot[rows[k:k + r], cols] = 1.0
         assert torch.equal(tld.lora_dropout_da(h, onehot, seed, rate).t(),
                            x[rows[k:k + r]]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,r", [(49152, 768, 8), (4097, 200, 20)])
+def test_lora_dropout_dh_is_bitwise_deterministic(m, d, r):
+    """Two calls of #6 on the same inputs give the same bits (bf16), at the
+    main path's shape and at a ragged one that takes the kernel's k loop:
+    each output is one tile's sums of one warp, with no atomics."""
+    _need_card()
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dt = torch.randn(m, r, generator=gen, device="cuda").bfloat16()
+    a = torch.randn(d, r, generator=gen, device="cuda").bfloat16()
+    first = tld.lora_dropout_dh(dt, a, -77, 0.1)
+    second = tld.lora_dropout_dh(dt, a, -77, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 @pytest.mark.cuda
@@ -574,11 +594,13 @@ def test_small_fp32_training_step_card_equals_cpu():
 
 # (b, h, lq, lk, lk_padded): the short attentions' shapes on the main path
 # (the sentence cross expert, the fuse experts), the text mask read-back
-# shape, an lk that is not a multiple of 16 (byte stores), and an explicit
-# counter stride
+# shape, an lk that is not a multiple of 16 (byte stores), an explicit
+# counter stride, one whose counter wraps 2^32 (rows past 32), and lk = 16
+# and 48 (16-byte stores, one and three runs a row)
 KEEP_MASK_CASES = [(64, 8, 64, 64, None), (64, 8, 2, 2, None),
                    (4, 12, 384, 384, None), (3, 5, 7, 37, None),
-                   (2, 4, 64, 64, 200)]
+                   (2, 4, 64, 64, 200), (2, 4, 64, 64, 2 ** 27),
+                   (64, 8, 64, 16, None), (64, 8, 64, 48, None)]
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training paths on one
-NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training and offline data
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -86,7 +86,21 @@ exits non-zero without the final result line:
  12. home_eval: the HoME checkpoint recalibrated over 2 batches of 128 (the
      BatchNorm statistics move and stay finite) and evaluated; a small fp32
      HoME model's recalibrated statistics and probabilities, card against
-     CPU.
+     CPU;
+ 13. pipeline: the offline data path through the CLI on seeded raw records
+     in the schema ingest writes (300 items, 200 users of 6-10 reviews of
+     40-150 words), a WordPiece vocab.txt of the model's 30522 entries and
+     numpy images as patch records for half the items: `features`,
+     `build-dataset` (train, valid), `pretokenize`, `validate` (exit 0, no
+     sample dropped, every sample pretokenized, about half with an image);
+     then `train` at full width (the default configuration, 2 optimizer
+     steps) on the pretokenized train shards: the native tokenizer packs
+     every batch through pack_encoded, launches of #1-#8 per step as the
+     train phase's, no skipped micro-batch; `eval` of its checkpoint over
+     the valid shards (n = the split's samples); `ckpt-info` (latest step
+     2, the trainer's own counts); and one 64-pair batch of these texts
+     packed on the host by the pure-Python and the native WordPiece and by
+     pack_encoded, the same arrays, with their times.
 Then one JSON line of kernel records, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Needs one card; exits non-zero
 without one.
@@ -1946,6 +1960,480 @@ def phase_home_eval(ckpt: str, shards):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the offline data pipeline, from raw records to a checkpoint
+# ---------------------------------------------------------------------------
+
+# The scale of the raw records: about 300 items and 200 users of 6-10
+# reviews each, texts of 40-150 words in 3-12 sentences.  The pipeline keeps
+# the JAX CLI's defaults (5 negatives a positive, 20% of the 5-star reviews);
+# each user's reviews run over a few weeks from a day of 2023, and the train
+# and valid splits end early in the year (PIPELINE_DATES), so that
+# build-dataset and pretokenize write a few hundred samples a split and the
+# test split, which no phase reads, holds the rest of the rows.
+PIPELINE = dict(items=300, users=200, reviews=(6, 10), words=(40, 150),
+                sentences=(3, 12), seed=0)
+PIPELINE_DATES = ("2023-02-05", "2023-02-25")   # train_end, valid_end
+PIPELINE_STEPS = 2                               # optimizer steps trained
+PIPELINE_HAS_IMAGE = (0.35, 0.65)   # patches for half the items
+PACK_REPEATS = {"python": 3, "native": 10, "pack_encoded": 10}
+_CATEGORIES = ("Sports & Outdoors", "Camping & Hiking", "Cycling",
+               "Exercise & Fitness")
+_REVIEW_WORDS = (
+    "the a an and but or so because while after before during with without "
+    "for from into onto over under about this that these those it its i we "
+    "you they my our your their me us them is was are were be been being "
+    "has have had do did does not no very really quite too also just only "
+    "still even again never always sometimes tent poles stakes rain fly "
+    "zipper zippers sleeping bag pad pillow stove fuel canister lantern "
+    "headlamp battery batteries backpack straps hip belt frame pocket "
+    "pockets bottle water filter jacket shell hood sleeves gloves boots "
+    "shoes socks laces soles trail trails hike hiking camp camping trip "
+    "trips weekend night nights morning day days week weeks month months "
+    "year bike helmet lights lock tire tires pump chain saddle grips "
+    "bottle cage gear kit knife axe cooler chair table hammock tarp rope "
+    "cord carabiner compass map weight weighs ounces pounds size fit fits "
+    "fitting small medium large light lighter heavy heavier compact sturdy "
+    "durable flimsy cheap expensive worth price value quality material "
+    "fabric nylon polyester aluminum steel plastic rubber foam mesh seams "
+    "stitching waterproof water-resistant breathable warm warmer cold "
+    "colder wind windy storm snow heat sun shade dry wet mud rocky sandy "
+    "ground floor setup set up pack packed packs fold folds folded easy "
+    "easier hard harder simple quick quickly slowly perfect perfectly great "
+    "good better best nice fine okay decent poor bad worse worst terrible "
+    "awesome excellent amazing solid reliable comfortable uncomfortable "
+    "love loved like liked hate hated recommend recommended return "
+    "returned replace replaced broke broken tore torn ripped leaked leaks "
+    "works worked working held holds hold kept keeps keep used use using "
+    "bought buy buying ordered order arrived shipping box instructions "
+    "color colors black green blue gray red orange bright dark two three "
+    "four five ten first second last every each other another more most "
+    "less enough much many few lot lots family kids wife husband friend "
+    "friends dog car truck backyard lake river mountain mountains forest "
+    "beach park campsite").split()
+_TEMPLATE_WORDS = ("category history total reviews review avg price std "
+                   "variation browsing item title features feature "
+                   "description no n a unknown").split()
+
+
+def _sentences(rng, lo: int, hi: int, words=(4, 18)) -> str:
+    """A text of lo..hi words in PIPELINE's sentence count, from
+    _REVIEW_WORDS."""
+    total = int(rng.integers(lo, hi + 1))
+    n = min(int(rng.integers(PIPELINE["sentences"][0],
+                             PIPELINE["sentences"][1] + 1)),
+            total // words[0])
+    lens = words[0] + rng.multinomial(total - words[0] * n, [1 / n] * n)
+    out = []
+    for k in lens:
+        w = list(rng.choice(_REVIEW_WORDS, size=int(k)))
+        if k > 8 and rng.random() < 0.4:
+            w[int(rng.integers(2, k - 2))] += ","
+        out.append(" ".join(w).capitalize() + str(rng.choice([".", ".",
+                                                               ".", "!",
+                                                               "?"])))
+    return " ".join(out)
+
+
+def pipeline_records(rng):
+    """Meta and review records in the schema transform_meta /
+    transform_review emit (what `ingest-meta` / `ingest-reviews` write),
+    as tests/test_pipeline.py's end-to-end test builds them, at
+    PIPELINE's scale."""
+    t0 = 1672531200000   # 2023-01-01T00:00:00Z in ms
+    metas = []
+    for i in range(PIPELINE["items"]):
+        url = f"https://m.media-amazon.com/images/I/{i:08d}.jpg"
+        metas.append({
+            "parent_asin": f"B{i:09d}", "asin": f"B{i:09d}",
+            "main_category": str(rng.choice(_CATEGORIES)),
+            "title": _sentences(rng, 4, 9, (4, 9)).rstrip(".!?"),
+            "average_rating": round(float(rng.uniform(2.5, 5)), 1),
+            "rating_number": int(rng.integers(1, 3000)),
+            "price": (None if rng.random() < 0.1 else
+                      round(float(rng.uniform(5, 300)), 2)),
+            "store": "Outfitters",
+            "features": [_sentences(rng, 5, 14, (5, 14))
+                         for _ in range(int(rng.integers(2, 6)))],
+            "description": [_sentences(rng, *PIPELINE["words"])],
+            "details": {"Item Weight": f"{int(rng.integers(2, 90))} ounces"},
+            "images": [{"variant": "MAIN", "hi_res": url, "large": url,
+                        "thumb": url}],
+            "bought_together": None, "categories": ["Sports & Outdoors"]})
+    reviews = []
+    day = 86400000
+    for u in range(PIPELINE["users"]):
+        # a user reviews every 1-4 days from a day of 2023 on, so that the
+        # rows of the early splits carry a causal history
+        ts = t0 + int(rng.integers(0, 330)) * day
+        for _ in range(int(rng.integers(PIPELINE["reviews"][0],
+                                        PIPELINE["reviews"][1] + 1))):
+            ts += int(rng.integers(1, 5)) * day + int(rng.integers(0, day))
+            pid = metas[int(rng.integers(0, len(metas)))]["parent_asin"]
+            reviews.append({
+                "user_id": f"AE{u:026d}", "asin": pid, "parent_asin": pid,
+                "rating": float(rng.choice([1, 2, 3, 4, 5],
+                                           p=[0.08, 0.06, 0.1, 0.2, 0.56])),
+                "title": _sentences(rng, 3, 8, (3, 8)).rstrip(".!?"),
+                "text": _sentences(rng, *PIPELINE["words"]),
+                "sort_timestamp": ts,
+                "verified_purchase": bool(rng.random() < 0.9),
+                "helpful_votes": int(rng.integers(0, 12))})
+    return metas, reviews
+
+
+def pipeline_vocab(path: str, vocab_size: int) -> None:
+    """A BERT-layout WordPiece vocab.txt of exactly vocab_size entries:
+    [PAD], [unused*], [UNK], [CLS], [SEP], [MASK], punctuation, digits and
+    letters with their ## pieces, the corpus's and the templates' words,
+    and every third long word only as a stem and a ## piece, so that
+    WordPiece splits it; [unused*] fill the rest."""
+    import string
+    held = sorted(w for w in set(_REVIEW_WORDS) if len(w) >= 7)[::3]
+    words = sorted(set(_REVIEW_WORDS) - set(held)) + _TEMPLATE_WORDS
+    chars = string.digits + string.ascii_lowercase
+    entries = dict.fromkeys(
+        ["[PAD]"] + [f"[unused{i}]" for i in range(99)] +
+        ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + list(string.punctuation) +
+        list(chars) + [f"##{c}" for c in chars] +
+        [p for w in held for p in (w[:4], f"##{w[4:]}")] + words)
+    entries = list(entries)
+    filler = 99
+    while len(entries) < vocab_size:
+        entries.append(f"[unused{filler}]")
+        filler += 1
+    check(len(entries) == vocab_size, f"vocab of {len(entries)} entries")
+    with open(path, "w") as f:
+        f.write("\n".join(entries) + "\n")
+
+
+def item_patch_record(rng, pid: str) -> dict:
+    """A 224x224x3 uint8 image made with numpy (a gradient, a few blocks,
+    noise), laid out as patches.decode_and_patch lays out a decoded one:
+    CHW, cut into 196 rows of 16x16x3, base64."""
+    y, x = np.mgrid[0:224, 0:224].astype(np.float32)
+    img = (rng.uniform(0, 255, (3, 1, 1)) +
+           rng.uniform(-0.5, 0.5, (3, 1, 1)) * y +
+           rng.uniform(-0.5, 0.5, (3, 1, 1)) * x)
+    for _ in range(3):
+        r, c = rng.integers(0, 180, 2)
+        h, w = rng.integers(20, 60, 2)
+        img[:, r:r + h, c:c + w] = rng.uniform(0, 255, (3, 1, 1))
+    img += rng.normal(0, 6, img.shape)
+    chw = np.clip(img, 0, 255).astype(np.uint8)
+    rows = (chw.reshape(3, 14, 16, 14, 16).transpose(1, 3, 0, 2, 4)
+            .reshape(196, 768))
+    return {"parent_asin": pid,
+            "patch_b64": base64.b64encode(rows.tobytes()).decode(),
+            "shape": [196, 3, 16, 16]}
+
+
+def run_cli(*argv):
+    """The port's CLI in this process: exit code, the last printed line as
+    JSON, seconds."""
+    import io
+    from mmoe_multimodal_rec_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    check(bool(lines), f"{argv[0]} printed nothing")
+    return rc, json.loads(lines[-1]), seconds
+
+
+@contextlib.contextmanager
+def pack_paths():
+    """The TextPacker calls made while the block runs (loader threads
+    included), by path: `pack` (split + WordPiece + packing) and
+    `pack_encoded` (packing of pretokenized sentences), each call's
+    tokenizer class."""
+    from mmoe_multimodal_rec_tpu_torch.data.packer import TextPacker
+    calls = {"pack": [], "pack_encoded": []}
+    real = {name: getattr(TextPacker, name) for name in calls}
+    lock = threading.Lock()
+
+    def spy(name):
+        def fn(self, *args, **kw):
+            with lock:
+                calls[name].append(type(self.tok).__name__)
+            return real[name](self, *args, **kw)
+        return fn
+    for name in calls:
+        setattr(TextPacker, name, spy(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(TextPacker, name, fn)
+
+
+@contextlib.contextmanager
+def trainer_steps():
+    """The Trainer that runs steps while the block runs, and each step's
+    metrics."""
+    from mmoe_multimodal_rec_tpu_torch.train.loop import Trainer
+    seen = {"trainer": None, "metrics": []}
+    real = Trainer.run_step
+
+    def spy(self, batch):
+        m = real(self, batch)
+        seen["trainer"] = self
+        seen["metrics"].append(m)
+        return m
+    Trainer.run_step = spy
+    try:
+        yield seen
+    finally:
+        Trainer.run_step = real
+
+
+def trainer_counts(trainer) -> dict:
+    """Elements of the trainer's trainable parameters, BatchNorm
+    statistics and optimizer state, as ckpt-info counts them."""
+    import torch
+    parts = {"trainable": list(trainer.trainable.values()),
+             "batch_stats": [b for _, b in trainer.model.named_buffers()],
+             "opt_state": [t for s in trainer.optimizer.state.values()
+                           for t in s.values() if torch.is_tensor(t)]}
+    return {k: sum(t.numel() for t in v) for k, v in parts.items()}
+
+
+def pipeline_data(root: str, vocab_size: int):
+    """Raw records, vocab and patches written, then `features`,
+    `build-dataset` (train and valid), `pretokenize` and `validate` through
+    the CLI.  Returns (stage seconds, counts, the validate reports, the
+    pretokenized shard globs, the vocab's path)."""
+    import gzip
+    from mmoe_multimodal_rec_tpu_torch.data.patches import write_patch_jsonl
+    rng = np.random.default_rng(PIPELINE["seed"])
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw)
+    seconds = {}
+    t0 = time.perf_counter()
+    metas, reviews = pipeline_records(rng)
+    for name, recs in (("meta", metas), ("reviews", reviews)):
+        with gzip.open(os.path.join(raw, f"{name}-00000.jsonl.gz"), "wt",
+                       encoding="utf-8") as f:
+            for rec in recs:
+                f.write(json.dumps(rec, ensure_ascii=False) + "\n")
+    vocab = os.path.join(root, "vocab.txt")
+    pipeline_vocab(vocab, vocab_size)
+    n_patches = write_patch_jsonl(
+        (item_patch_record(rng, m["parent_asin"]) for m in metas[::2]),
+        os.path.join(raw, "patches.jsonl.gz"))
+    seconds["records"] = time.perf_counter() - t0
+    train_end, valid_end = PIPELINE_DATES
+    rc, features, seconds["features"] = run_cli(
+        "features", f"--meta={raw}/meta-*.jsonl.gz",
+        f"--reviews={raw}/reviews-*.jsonl.gz",
+        f"--output={root}/rows", f"--train-end={train_end}",
+        f"--valid-end={valid_end}")
+    check(rc == 0 and features["splits"] == ["test", "train", "valid"],
+          f"features: {rc} {features}")
+    rows = {}
+    for split in ("train", "valid", "test"):
+        d = os.path.join(root, "rows", split)
+        rows[split] = sum(sum(1 for _ in open(os.path.join(d, f)))
+                          for f in os.listdir(d))
+    shards, reports = {}, {}
+    for split in ("train", "valid"):
+        rc, built, s = run_cli(
+            "build-dataset", f"--rows={root}/rows/{split}/*.jsonl",
+            f"--patches={raw}/patches.jsonl.gz",
+            f"--output={root}/shards_raw/{split}", "--samples-per-shard=128")
+        seconds[f"build_dataset_{split}"] = s
+        check(rc == 0 and built["shards"] > 0, f"build-dataset: {built}")
+        rc, pre, s = run_cli(
+            "pretokenize", f"--input={root}/shards_raw/{split}/*.tar.gz",
+            f"--output={root}/shards/{split}", f"--data.vocab_path={vocab}")
+        seconds[f"pretokenize_{split}"] = s
+        check(rc == 0 and pre["shards"] == built["shards"],
+              f"pretokenize: {pre}, built {built}")
+        shards[split] = f"{root}/shards/{split}/*.tar.gz"
+        rc, rep, s = run_cli("validate", f"--input={shards[split]}")
+        seconds[f"validate_{split}"] = s
+        check(rc == 0 and rep["dropped"] == 0 and
+              rep["samples"] == rows[split] and
+              rep["pretokenized_rate"] == 1.0 and
+              PIPELINE_HAS_IMAGE[0] <= rep["has_image_rate"]
+              <= PIPELINE_HAS_IMAGE[1],
+              f"validate {split}: exit {rc}, {rep}, {rows[split]} rows")
+        reports[split] = rep
+    counts = {"items": len(metas), "users": PIPELINE["users"],
+              "reviews": len(reviews), "patches": n_patches,
+              "image_urls": features["image_urls"], "rows": rows,
+              "samples": {k: r["samples"] for k, r in reports.items()},
+              "shards": {k: r["shards"] for k, r in reports.items()}}
+    return seconds, counts, reports, shards, vocab
+
+
+def host_pack_times(pattern: str, vocab: str, cfg, batch: int = 64):
+    """One batch of `batch` decoded pairs packed on the host three ways:
+    the pure-Python WordPiece and the native one (text: split + encode +
+    pack), and the native pack_encoded over the pretokenized sentences
+    (the loader's path on these shards).  All must give the same arrays.
+    Returns ms by way (median of PACK_REPEATS) and the batch's fill."""
+    import itertools
+    from mmoe_multimodal_rec_tpu_torch.data.io import fs_glob
+    from mmoe_multimodal_rec_tpu_torch.data.loader import iter_decoded
+    from mmoe_multimodal_rec_tpu_torch.data.native_tokenizer import (
+        NativeWordPieceTokenizer)
+    from mmoe_multimodal_rec_tpu_torch.data.packer import TextPacker
+    from mmoe_multimodal_rec_tpu_torch.data.wordpiece import (
+        WordPieceTokenizer)
+    samples = list(itertools.islice(iter_decoded(sorted(fs_glob(pattern))),
+                                    batch))
+    check(len(samples) == batch and all("user_sents" in s for s in samples),
+          "the pack batch lacks pretokenized samples")
+    budget = cfg.model.packer.chunk_budget
+    py = TextPacker(WordPieceTokenizer.from_vocab_file(vocab),
+                    cfg.model.packer)
+    nat = TextPacker(NativeWordPieceTokenizer(vocab), cfg.model.packer)
+    sides = ("user", "item")
+    ways = {
+        "python": lambda: [py.pack([s[f"{side}_text"] for s in samples],
+                                   budget) for side in sides],
+        "native": lambda: [nat.pack([s[f"{side}_text"] for s in samples],
+                                    budget) for side in sides],
+        "pack_encoded": lambda: [nat.pack_encoded(
+            [s[f"{side}_sents"] for s in samples], budget) for side in sides]}
+    ms, outs = {}, {}
+    for name, fn in ways.items():
+        times = []
+        for _ in range(PACK_REPEATS[name]):
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms[name] = sorted(times)[len(times) // 2]
+    want = outs["python"]
+    for name, got in outs.items():
+        for a, b in zip(got, want):
+            check(a.n_chunks == b.n_chunks and
+                  np.array_equal(a.tokens, b.tokens) and
+                  np.array_equal(a.sent_chunk, b.sent_chunk) and
+                  np.array_equal(a.sent_tok, b.sent_tok),
+                  f"host packing: {name} differs from the pure-Python pack")
+    fill = {}
+    for side, packed in zip(sides, want):
+        real = packed.tokens[:packed.n_chunks] != py.tok.pad_id
+        fill[side] = {"chunks": int(packed.n_chunks), "budget": budget,
+                      "tokens_per_chunk": float(real.sum(1).mean()),
+                      "sentences_per_sample":
+                          float((packed.sent_chunk >= 0).sum(1).mean())}
+    return ms, fill
+
+
+def phase_pipeline():
+    """The offline data path through the CLI on seeded raw records (the
+    schema ingest writes), with a WordPiece vocab of the model's size and
+    patches for half the items: features -> build-dataset -> pretokenize
+    -> validate; then the full-width baseline trains PIPELINE_STEPS
+    optimizer steps on the pretokenized train shards through `train`
+    (every batch packed through pack_encoded by the native tokenizer, the
+    launches of #2-#6 and #8 per step as expected_launches says, no
+    skipped micro-batch, finite losses), `eval` scores the checkpoint over
+    the valid shards (every sample counted, the launches of #1 and #2 per
+    forward), and `ckpt-info` reads it back (the latest step and the
+    trainer's own counts); last, the host packing of one batch of these
+    texts, three ways, with equal outputs."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.config import Config
+    from mmoe_multimodal_rec_tpu_torch.data.native_tokenizer import (
+        NativeWordPieceTokenizer, load_best_tokenizer)
+    root = os.path.join(WORK, "pipeline")
+    base = train_config()
+    seconds, counts, reports, shards, vocab = pipeline_data(
+        root, base.model.text.vocab_size - 1)
+    tok = load_best_tokenizer(vocab, base.model.text.vocab_size)
+    check(isinstance(tok, NativeWordPieceTokenizer),
+          f"the native tokenizer did not load: {type(tok).__name__}")
+    ckpt = os.path.join(root, "ckpt")
+    flags = [f"--train.batch_size={base.train.batch_size}",
+             f"--train.optim.grad_accum={base.train.optim.grad_accum}",
+             f"--model.packer.chunk_budget={base.model.packer.chunk_budget}",
+             f"--data.vocab_path={vocab}", f"--train.checkpoint_dir={ckpt}",
+             f"--train.output_dir={root}/out"]
+    cfg = Config.from_flags(flags)
+    accum = cfg.train.optim.grad_accum
+    reset_launches()
+    with pack_paths() as packs, trainer_steps() as seen:
+        rc, trained, seconds["train"] = run_cli(
+            "train", "--device=cuda",
+            f"--data.train_pattern={shards['train']}",
+            "--train.epochs=1", f"--train.steps_per_epoch="
+            f"{PIPELINE_STEPS * accum}", "--train.log_every=1", *flags)
+    launches = read_launches()
+    metrics, trainer = seen["metrics"], seen["trainer"]
+    check(rc == 0 and len(metrics) == PIPELINE_STEPS,
+          f"train: exit {rc}, {len(metrics)} steps")
+    for m in metrics:
+        check(math.isfinite(m["loss"]) and m["skipped_micro"] == 0
+              and TRAIN_LOSS_RANGE[0] < m["loss"] < TRAIN_LOSS_RANGE[1],
+              f"pipeline train step: {m}")
+    check(trainer.device.type == "cuda", f"trained on {trainer.device}")
+    check(not packs["pack"] and
+          len(packs["pack_encoded"]) >= 2 * PIPELINE_STEPS * accum and
+          set(packs["pack_encoded"]) == {"NativeWordPieceTokenizer"},
+          f"the loader's pack paths: pack {len(packs['pack'])} calls, "
+          f"pack_encoded {len(packs['pack_encoded'])} "
+          f"({sorted(set(packs['pack_encoded']))})")
+    per_step = {k: n / PIPELINE_STEPS for k, n in launches.items()}
+    want = expected_launches(cfg)
+    check(per_step == want, f"pipeline train launches per step {per_step}, "
+                            f"expected {want}")
+    own = trainer_counts(trainer)
+    del trainer, seen
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    with pack_paths() as eval_packs:
+        rc, ev, seconds["eval"] = run_cli(
+            "eval", "--device=cuda", f"--checkpoint={ckpt}",
+            f"--data.valid_pattern={shards['valid']}", *flags)
+    eval_launches = read_launches()
+    n_valid = counts["samples"]["valid"]
+    forwards = math.ceil(n_valid / cfg.train.batch_size)
+    check(rc == 0 and ev["n"] == n_valid and math.isfinite(ev["auc_good"])
+          and math.isfinite(ev["auc_best"]),
+          f"eval: exit {rc}, {ev}, {n_valid} valid samples")
+    check(not eval_packs["pack"] and
+          len(eval_packs["pack_encoded"]) == 2 * forwards,
+          f"eval pack paths: {len(eval_packs['pack'])} pack, "
+          f"{len(eval_packs['pack_encoded'])} pack_encoded")
+    check_eval_launches(eval_launches, cfg, forwards, "pipeline eval")
+    torch.cuda.empty_cache()
+
+    rc, info, seconds["ckpt_info"] = run_cli("ckpt-info",
+                                             f"--checkpoint={ckpt}")
+    check(rc == 0 and info["latest_step"] == PIPELINE_STEPS
+          and info["param_counts"] == own and info["frozen_once"],
+          f"ckpt-info: {info}, the trainer's counts {own}")
+
+    pack_ms, fill = host_pack_times(shards["valid"], vocab, cfg)
+    log("pipeline", counts=counts, seconds=seconds,
+        validate={k: {f: r[f] for f in ("dropped", "pretokenized_rate",
+                                        "has_image_rate",
+                                        "label_good_pos_rate",
+                                        "label_best_pos_rate")}
+                  for k, r in reports.items()},
+        tokenizer=type(tok).__name__,
+        train={"steps": len(metrics), "losses": [m["loss"] for m in metrics],
+               "skipped_micro": [m["skipped_micro"] for m in metrics],
+               "examples_per_sec": trained["examples_per_sec"],
+               "launches_per_step": per_step,
+               "pack_encoded_calls": len(packs["pack_encoded"])},
+        eval={"n": ev["n"], "auc_good": ev["auc_good"],
+              "auc_best": ev["auc_best"], "forwards": forwards,
+              "launches": eval_launches},
+        ckpt_info={k: info[k] for k in ("latest_step", "steps",
+                                        "param_counts", "payload_mb",
+                                        "resume")},
+        host_pack_ms=pack_ms, host_pack_batch=cfg.train.batch_size,
+        host_pack_fill=fill, nvidia_smi=nvidia_smi())
+    return pack_ms
+
 def ptxas_report(log_text: str):
     """ptxas's registers and spills, per kernel (its mangled name)."""
     out, name = [], None
@@ -2292,6 +2780,7 @@ def main() -> int:
         shards = write_eval_shards()
         phase_eval(ckpt, shards)
         phase_home_eval(home_ckpt, shards)
+        phase_pipeline()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

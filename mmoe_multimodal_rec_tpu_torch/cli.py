@@ -1,5 +1,15 @@
-"""Command-line entry point of the PyTorch port: `synth`, `train`, `eval`,
-`serve`.
+"""Command-line entry point of the PyTorch port: the JAX CLI's twelve
+commands.  `train`, `eval` and `serve` run the model; the offline data path
+runs on the host:
+
+  ingest-meta / ingest-reviews  ~ meta2gcs.py / review2gcs.py (network)
+  features       ~ data4moe_beam.py: raw JSONL -> per-split feature rows
+  patches        ~ newpatch.py: image URLs -> patch JSONL (network, PIL, httpx)
+  build-dataset  ~ data4model.py: feature rows (+ patches) -> tar shards
+  pretokenize    token sidecars baked into shards (data/pretokenize.py)
+  validate       drop/degradation report over shards (exit 3 on a drop)
+  ckpt-info      the port's checkpoint directory, without building a model
+  synth          synthetic shards for smoke runs
 
   python -m mmoe_multimodal_rec_tpu_torch synth --output=shards --samples=48
   python -m mmoe_multimodal_rec_tpu_torch train \\
@@ -29,6 +39,7 @@ import sys
 from typing import List, Optional
 
 from .config import Config
+from .data.io import fs_glob, fs_open
 
 
 def _split_flags(argv: List[str]):
@@ -249,8 +260,258 @@ def cmd_serve(argv: List[str]) -> int:
     return 0
 
 
-COMMANDS = {"synth": cmd_synth, "train": cmd_train, "eval": cmd_eval,
-            "serve": cmd_serve}
+def _read_jsonl(pattern: str, skip_bad: bool = False):
+    """The records of every JSONL(.gz) file matching `pattern`."""
+    import gzip
+    import io
+    for path in fs_glob(pattern):
+        raw = fs_open(path, "rb")
+        with (gzip.open(raw, "rt") if path.endswith(".gz")
+              else io.TextIOWrapper(raw)) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    yield json.loads(line)
+                except json.JSONDecodeError:
+                    if not skip_bad:
+                        raise
+
+
+def cmd_features(argv: List[str]) -> int:
+    """Meta x reviews -> causal feature rows by split and category, plus the
+    items' image URLs (data/features.py)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--meta", required=True, help="meta jsonl(.gz) glob")
+    ap.add_argument("--reviews", required=True, help="review jsonl(.gz) glob")
+    ap.add_argument("--output", required=True)
+    ap.add_argument("--train-end", default="2023-06-30")
+    ap.add_argument("--valid-end", default="2023-09-30")
+    ap.add_argument("--neg-k", type=int, default=5)
+    ap.add_argument("--rate-5", type=float, default=0.2)
+    args = ap.parse_args(argv)
+
+    from .data.features import run_feature_pipeline, write_split_jsonl
+    split_rows, image_urls = run_feature_pipeline(
+        _read_jsonl(args.meta, skip_bad=True),
+        _read_jsonl(args.reviews, skip_bad=True),
+        args.train_end, args.valid_end, args.neg_k, args.rate_5)
+    paths = write_split_jsonl(split_rows, args.output)
+    with fs_open(os.path.join(args.output, "image_urls.jsonl"), "w") as f:
+        for rec in image_urls:
+            f.write(json.dumps(rec) + "\n")
+    print(json.dumps({"splits": sorted({s for _, s in split_rows}),
+                      "files": len(paths), "image_urls": len(image_urls)}))
+    return 0
+
+
+def cmd_build_dataset(argv: List[str]) -> int:
+    """Feature rows of one split (+ optional patch records) -> tar shards
+    (data/textbuild.py)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", required=True,
+                    help="feature-row jsonl glob (one split)")
+    ap.add_argument("--patches", default=None,
+                    help="patch jsonl(.gz) glob (optional)")
+    ap.add_argument("--output", required=True)
+    ap.add_argument("--samples-per-shard", type=int, default=1024)
+    args = ap.parse_args(argv)
+
+    rows_by_asin = {}
+    for row in _read_jsonl(args.rows):
+        rows_by_asin.setdefault(row.get("parent_asin"), []).append(row)
+    patches_by_asin = {}
+    if args.patches:
+        for rec in _read_jsonl(args.patches):
+            patches_by_asin[rec["parent_asin"]] = rec
+
+    from .data.textbuild import write_dataset
+    paths = write_dataset(rows_by_asin, patches_by_asin, args.output,
+                          args.samples_per_shard)
+    print(json.dumps({"shards": len(paths)}))
+    return 0
+
+
+def cmd_patches(argv: List[str]) -> int:
+    """Image URLs -> 16x16 patch records (data/patches.py; needs network,
+    httpx and PIL)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--input", required=True, help="image-url jsonl glob")
+    ap.add_argument("--output", required=True, help="output jsonl.gz path")
+    args = ap.parse_args(argv)
+    from .data.patches import fetch_patches, write_patch_jsonl
+    n = write_patch_jsonl(fetch_patches(_read_jsonl(args.input)),
+                          args.output)
+    print(json.dumps({"patches": n}))
+    return 0
+
+
+def cmd_ingest(argv: List[str], kind: str) -> int:
+    """Amazon Reviews 2023 meta or reviews from the HF hub -> gzip JSONL
+    shards (data/ingest.py; needs network and huggingface_hub/datasets)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--output", required=True)
+    ap.add_argument("--split", default="Sports_and_Outdoors")
+    ap.add_argument("--shard-size", type=int,
+                    default=100_000 if kind == "meta" else 300_000)
+    args = ap.parse_args(argv)
+    from .data import ingest
+    fn = ingest.ingest_meta if kind == "meta" else ingest.ingest_reviews
+    paths = fn(args.output, args.split, args.shard_size)
+    print(json.dumps({"shards": len(paths)}))
+    return 0
+
+
+def cmd_pretokenize(argv: List[str]) -> int:
+    """Bake sentence-token sidecars into shards (data/pretokenize.py) so
+    the train/eval loaders skip sentence splitting + WordPiece entirely
+    (the reference's stated future work, README.md:670)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--input", required=True, help="input shard glob")
+    ap.add_argument("--output", required=True, help="output shard dir")
+    cfg_flags, rest = _split_flags(argv)
+    args = ap.parse_args(rest)
+    cfg = Config.from_flags(cfg_flags)
+
+    from .data.packer import packer_from_config
+    from .data.pretokenize import pretokenize_shards
+
+    paths = pretokenize_shards(args.input, args.output,
+                               packer_from_config(cfg))
+    print(json.dumps({"shards": len(paths)}))
+    return 0
+
+
+def cmd_validate(argv: List[str]) -> int:
+    """Scan shards and report drop/degradation reasons + label/image stats.
+    The loaders (and the reference, train.py:54) drop malformed samples
+    silently; this surfaces what a training run would quietly lose.
+    Exits 3 when a sample would be dropped."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--input", required=True, help="shard glob")
+    ap.add_argument("--limit", type=int, default=0,
+                    help="stop after N samples (0 = all)")
+    args = ap.parse_args(argv)
+
+    import itertools
+    from collections import Counter
+
+    from .data.decode import decode_sample, explain_sample
+    from .data.tar_io import iter_shard
+
+    shards = fs_glob(args.input)
+    if not shards:
+        raise FileNotFoundError(f"no shards match {args.input!r}")
+    reasons: Counter = Counter()
+    degraded: Counter = Counter()
+    n = ok = has_img = pretok = 0
+    pos_good = pos_best = 0.0
+    samples = itertools.chain.from_iterable(iter_shard(p) for p in shards)
+    if args.limit:
+        samples = itertools.islice(samples, args.limit)
+    for sample in samples:
+        n += 1
+        rep = explain_sample(sample)
+        if rep["status"] == "ok":
+            ok += 1
+            dec = decode_sample(sample)
+            if dec is not None:
+                has_img += dec["has_image"]
+                pos_good += dec["label_good"]
+                pos_best += dec["label_best"]
+                pretok += int("user_sents" in dec)
+        else:
+            reasons[rep["reason"]] += 1
+        for d in rep["degraded"]:
+            degraded[d] += 1
+    print(json.dumps({
+        "shards": len(shards), "samples": n, "ok": ok, "dropped": n - ok,
+        "drop_reasons": dict(reasons), "degraded": dict(degraded),
+        "has_image_rate": round(has_img / ok, 4) if ok else None,
+        "pretokenized_rate": round(pretok / ok, 4) if ok else None,
+        "label_good_pos_rate": round(pos_good / ok, 4) if ok else None,
+        "label_best_pos_rate": round(pos_best / ok, 4) if ok else None,
+    }))
+    return 0 if n == ok else 3
+
+
+def cmd_ckpt_info(argv: List[str]) -> int:
+    """Inspect the port's checkpoint directory (train/checkpoint.py's
+    layout) without building a model: steps present, resume position,
+    payload composition, frozen-base fingerprint.  The payloads are read
+    with torch.load(weights_only=True); an orbax directory of the JAX
+    trainer is refused."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--checkpoint", type=str, default=None,
+                    help="the port's checkpoint dir (defaults to "
+                         "train.checkpoint_dir)")
+    cfg_flags, rest = _split_flags(argv)
+    args = ap.parse_args(rest)
+    cfg = Config.from_flags(cfg_flags)
+
+    import torch
+
+    from .train.checkpoint import CheckpointManager, check_not_orbax
+
+    directory = os.path.abspath(args.checkpoint or cfg.train.checkpoint_dir)
+    if not os.path.isdir(directory):
+        raise FileNotFoundError(directory)
+    check_not_orbax(directory)
+    mngr = CheckpointManager(directory)
+    steps = mngr.all_steps()
+    info = {"directory": directory, "steps": steps,
+            "latest_step": steps[-1] if steps else None}
+    fp_path = os.path.join(directory, "frozen_once.fingerprint.json")
+    if os.path.exists(fp_path):
+        with open(fp_path) as f:
+            info["frozen_fingerprint"] = json.load(f)["sha256"][:16]
+        info["frozen_once"] = os.path.isfile(
+            os.path.join(directory, "frozen_once.pt"))
+    if steps:
+        saved = torch.load(mngr._path(steps[-1]), map_location="cpu",
+                           weights_only=True)
+        extra = saved.get("extra", {})
+        info["resume"] = {k: int(v) for k, v in extra.items()}
+        counts, nbytes = {}, {}
+        for part, key in (("trainable", "trainable"),
+                          ("batch_stats", "batch_stats"),
+                          ("opt_state", "optimizer")):
+            leaves = _tensor_leaves(saved.get(key) or {})
+            counts[part] = sum(t.numel() for t in leaves)
+            nbytes[part] = sum(t.numel() * t.element_size() for t in leaves)
+        info["param_counts"] = counts
+        info["payload_mb"] = {k: round(v / 1e6, 1) for k, v in nbytes.items()}
+    print(json.dumps(info))
+    return 0
+
+
+def _tensor_leaves(tree) -> list:
+    """Every tensor in a nest of dicts, lists and tuples."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensor_leaves(x)]
+    return []
+
+
+COMMANDS = {
+    "train": cmd_train,
+    "eval": cmd_eval,
+    "features": cmd_features,
+    "build-dataset": cmd_build_dataset,
+    "patches": cmd_patches,
+    "ingest-meta": lambda a: cmd_ingest(a, "meta"),
+    "ingest-reviews": lambda a: cmd_ingest(a, "reviews"),
+    "synth": cmd_synth,
+    "serve": cmd_serve,
+    "pretokenize": cmd_pretokenize,
+    "validate": cmd_validate,
+    "ckpt-info": cmd_ckpt_info,
+}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -144,7 +144,7 @@ def assemble_batch(samples: List[dict], packer: TextPacker,
     When every sample carries offline-pretokenized sentences at a
     compatible truncation (data/pretokenize.py sidecars), the split +
     WordPiece stages are skipped and only the greedy packing runs —
-    bit-identical outputs (tests/test_pretokenize.py)."""
+    bit-identical outputs (tests/test_torch_data_pipeline.py)."""
     b = len(samples)
     need = packer.cfg.max_tok - 3
     vocab = packer.tok.vocab_size

@@ -1,6 +1,5 @@
 """Static-shape sentence/chunk packer — the keystone host transform (the
-PyTorch port's copy of mmoe_multimodal_rec_tpu/data/packer.py; it builds its
-tokenizer from the pure-Python data/wordpiece.py only).
+PyTorch port's copy of mmoe_multimodal_rec_tpu/data/packer.py).
 
 Reimplements `preprocess_batch` (ref model.py:29-117) with identical packing
 semantics but XLA-static outputs (SURVEY §7.2): the reference emits
@@ -65,7 +64,7 @@ class TextPacker:
         # Fast path: the native tokenizer runs the ENTIRE pack stage (encode
         # + greedy chunk packing) in one GIL-released C++ call — identical
         # outputs to the Python loop below (cross-checked in
-        # tests/test_native_tokenizer.py), but loader pack threads scale
+        # tests/test_torch_native_tokenizer.py), but loader pack threads scale
         # with cores.
         if hasattr(tok, "pack_batch"):
             tokens, sent_chunk, sent_tok, n_chunks = tok.pack_batch(
@@ -108,7 +107,8 @@ class TextPacker:
         work, README.md:670): with sentence splitting + WordPiece done
         offline (`data/pretokenize.py`), the in-loader host work reduces
         to this cheap packing loop.  Output is bit-identical to
-        `pack()` on the same sentences (tests/test_pretokenize.py)."""
+        `pack()` on the same sentences (tests/test_torch_data_pipeline.py,
+        tests/test_torch_native_tokenizer.py)."""
         cfg = self.cfg
         tok = self.tok
         max_tok = cfg.max_tok
@@ -118,7 +118,8 @@ class TextPacker:
         S = cfg.fixed_sent_count
 
         # native fast path: greedy pack in one GIL-released C++ call
-        # (bit-identical to the loop below, tests/test_pretokenize.py)
+        # (bit-identical to the loop below,
+        # tests/test_torch_native_tokenizer.py)
         if hasattr(tok, "pack_encoded_batch"):
             tokens, sent_chunk, sent_tok, n_chunks = tok.pack_encoded_batch(
                 enc_per_text, max_tok=max_tok,
@@ -181,29 +182,28 @@ class TextPacker:
 
 
 def packer_from_config(cfg) -> TextPacker:
-    """Framework-wide packer factory from the root Config: the pure-Python
-    WordPiece tokenizer over data.vocab_path, or the vocab-free
+    """Framework-wide packer factory from the root Config: the WordPiece
+    tokenizer over data.vocab_path (the native C++ one,
+    data/native_tokenizer.py, when g++ builds it, else the pure-Python
+    data/wordpiece.py, which gives the same ids), or the vocab-free
     HashTokenizer when data.allow_hash_tokenizer is set, + the config's
-    packing caps.
+    packing caps.  Every CLI entry point builds its packer here.
 
     Vocab-less runs ERROR unless data.allow_hash_tokenizer is set: the hash
     stand-in produces deterministic but meaningless ids on real text, where
     the reference would have loaded a real vocab (ref train.py:102-103) —
     a forgotten --data.vocab_path must fail loudly, not degrade silently."""
-    from .wordpiece import HashTokenizer, WordPieceTokenizer
-    if cfg.data.vocab_path:
-        return TextPacker(
-            WordPieceTokenizer.from_vocab_file(cfg.data.vocab_path),
-            cfg.model.packer)
-    if not cfg.data.allow_hash_tokenizer:
+    from .native_tokenizer import load_best_tokenizer
+    if not cfg.data.vocab_path and not cfg.data.allow_hash_tokenizer:
         raise ValueError(
             "data.vocab_path is unset: real text would be tokenized with the "
             "vocab-free HashTokenizer stand-in and produce garbage ids. Set "
             "--data.vocab_path=<BGE/BERT vocab.txt>, or pass "
             "--data.allow_hash_tokenizer=true only for synthetic corpora "
             "(tests/benchmarks).")
-    # the hash ids must stay inside the embedding table (vocab_size counts
-    # the <SENT> row, so the base vocab is one smaller)
-    return TextPacker(HashTokenizer(vocab_size=cfg.model.text.vocab_size - 1),
+    # without a vocab, the hash ids stay inside the embedding table
+    # (vocab_size counts the <SENT> row, so the base vocab is one smaller)
+    return TextPacker(load_best_tokenizer(cfg.data.vocab_path,
+                                          cfg.model.text.vocab_size),
                       cfg.model.packer)
 

@@ -58,7 +58,10 @@ print(json.dumps({"modules": names, "bad": bad}))
                 "train.losses", "train.optimizer", "train.step", "train.loop",
                 "train.checkpoint", "train.preemption", "utils.metrics",
                 "data.decode", "data.io", "data.tar_io", "data.synthetic",
-                "data.loader"):
+                "data.loader", "data.pretokenize", "data.textbuild",
+                "data.features", "data.minibeam", "data.beam_pipeline",
+                "data.ingest", "data.patches", "data.native_tokenizer",
+                "native"):
         assert f"mmoe_multimodal_rec_tpu_torch.{mod}" in res["modules"]
     # imports inside functions too: no source line of the port names them
     for path in sorted(PORT_PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
@@ -74,6 +77,9 @@ def test_cli_usage_and_unported_options(capsys, tmp_path):
     assert cli.main(["no-such-command"]) == 2
     usage = capsys.readouterr().out
     assert all(c in usage for c in ("synth", "train", "eval", "serve"))
+    assert all(c in usage for c in (
+        "features", "build-dataset", "patches", "ingest-meta",
+        "ingest-reviews", "pretokenize", "validate", "ckpt-info"))
     for command in ("serve", "eval"):
         with pytest.raises(FileNotFoundError, match="--checkpoint"):
             cli.main([command, "--checkpoint=/nowhere", "--device=cpu"])
@@ -88,6 +94,10 @@ def test_cli_usage_and_unported_options(capsys, tmp_path):
     with pytest.raises(NotImplementedError, match="orbax"):
         cli.main(["serve", "--device=cpu",
                   f"--train.checkpoint_dir={tmp_path / 'orbax'}"])
+    with pytest.raises(NotImplementedError, match="orbax.*needs a design"):
+        cli.main(["ckpt-info", f"--checkpoint={tmp_path / 'orbax'}"])
+    with pytest.raises(FileNotFoundError):
+        cli.main(["ckpt-info", "--checkpoint=/nowhere"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["train", "--multihost", "--device=cpu"])
 

@@ -141,6 +141,8 @@ import base64
 import concurrent.futures
 import http.client
 import contextlib
+import copy
+import gc
 import json
 import math
 import os
@@ -229,6 +231,30 @@ CLI_AUC_TOL = 1e-3
 # small fp32 HoME: recalibrated statistics, card against CPU, of each
 # tensor's largest value (fp32 sums in another order through 2 layers)
 SMALL_STATS_TOL = 1e-4
+# remat_check: each policy against the same forward without recompute (for
+# "quant"/"quant4"/"quant_fc1" that forward quantises too), one micro-batch
+# of a 2-text-layer model in fp32 on the kernels, LoRA gradients: the same
+# math, but the recompute adds a layer input's gradient contributions (q,
+# k, v, the residual) in another order, and the sentence gather adds
+# atomically: 4.6e-7 of the largest gradient and 3.5e-7 in L2 on the CPU
+# at the tests' tiny size, 0 for full and attn.  Limits: loss 8 fp32 units
+# in the last place of a loss near 1.4; gradients 1e-4 of the largest and
+# 1e-5 in L2.  The HoME case runs
+# in bf16 (the packed backward of its fine-tuned ViT layers takes bf16):
+# its limits are home_check's.  Against no remat the quantising policies
+# differ by the dequantisation: gradient cosine above 0.99, the limit of
+# tests/test_quant_remat.py::test_quant_grads_match_exact
+REMAT_POLICIES = ("full", "dots", "attn", "quant", "quant4", "quant_fc1")
+REMAT_CHECK_TOL = (1e-6, 1e-4, 1e-5)          # loss, grad max, grad L2
+REMAT_QUANT_COSINE = 0.99
+# shared_check: the shared base against two towers of the same base, one
+# micro-batch of a 2-text-layer model in fp32 at rate 0: one pass over
+# twice the rows sums its products (and #5 its dA) in another grouping than
+# two passes, so the gaps are fp32 rounding: limits 1e-5 (loss), 1e-4 of
+# the largest gradient, 1e-5 in L2
+SHARED_CHECK_TOL = (1e-5, 1e-4, 1e-5)
+SHARED_TEXT = dict(TEXT, b=2 * TEXT["b"])     # [user; item] chunks at once
+SHARED_LORA = dict(LORA, m=2 * LORA["m"], r=2 * LORA["r"])  # folded rank 2r
 PACKAGE = "mmoe_multimodal_rec_tpu_torch"
 
 
@@ -637,47 +663,7 @@ def phase_lora_kernels():
     from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as ld
     m, d, r, rate = LORA["m"], LORA["d"], LORA["r"], LORA["rate"]
     gen = torch.Generator(device="cuda").manual_seed(3)
-    h = torch.randn(m, d, generator=gen, device="cuda").bfloat16()
-    a = (0.05 * torch.randn(d, r, generator=gen, device="cuda")).bfloat16()
-    dt = torch.randn(m, r, generator=gen, device="cuda").bfloat16()
-    seed = 1234567
-    el = h.element_size()
-    cases = {
-        "lora_dropout_fwd": (lambda: ld.lora_dropout_fwd(h, a, seed, rate),
-                             lambda: ld.lora_dropout_fwd_reference(
-                                 h, a, seed, rate),
-                             (m * d + d * r + m * r) * el),
-        "lora_dropout_da": (lambda: ld.lora_dropout_da(h, dt, seed, rate),
-                            lambda: ld.lora_dropout_da_reference(
-                                h, dt, seed, rate),
-                            (m * d + m * r + d * r) * el),
-        "lora_dropout_dh": (lambda: ld.lora_dropout_dh(dt, a, seed, rate),
-                            lambda: ld.lora_dropout_dh_reference(
-                                dt, a, seed, rate),
-                            (m * r + d * r + m * d) * el),
-    }
-    flops = 2 * m * d * r
-    recs = {}
-    for name, (kernel, plain, nbytes) in cases.items():
-        got = kernel()
-        again = kernel()
-        torch.cuda.synchronize()
-        check(torch.equal(got, again), f"{name}: two calls differ")
-        del again
-        want = plain()
-        err = (got.float() - want.float()).abs().max().item()
-        top = want.float().abs().max().item()
-        check(math.isfinite(err) and err <= LORA_TOL * top,
-              f"{name}: kernel vs plain max abs err {err} > {LORA_TOL} x "
-              f"{top}")
-        bound_ms, bound_by = bound(nbytes, flops)
-        recs[name] = {"max_abs_err": err, "err_of_largest": err / top,
-                      "ms": cuda_ms(kernel), "host_ms": host_ms(kernel),
-                      "plain_ms": cuda_ms(plain, iters=3, warmup=1),
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "io_bytes": nbytes, "flops": flops,
-                      "two_calls_equal": True}
-        del got, want
+    cases, recs, (h, a, dt, seed) = lora_kernel_cases(m, d, r, rate, gen)
     log("lora_kernels", m=m, d=d, r=r, rate=rate, tol=LORA_TOL,
         library_ms=None, library_reason="no single PyTorch call computes "
         "the masked thin product or its gradients", **recs)
@@ -1167,22 +1153,32 @@ def expected_launches(cfg):
     first, whose input comes from frozen embeddings and LayerNorm.  The
     short attentions that stay plain torch draw their dropout mask through
     #8: the sentence cross expert's self-attention blocks (cross_layers a
-    side) and its cross attention, and the two fuse experts' blocks."""
+    side) and its cross attention, and the two fuse experts' blocks.
+
+    With the shared text base one encoder runs over both sides' chunks, so
+    the text layers count once.  Under remat (every policy but "dots") each
+    layer that needs a gradient is run again in the backward: every text
+    layer launches #2 and its LoRA sites' #4 a second time, and HoME's two
+    fine-tuned ViT layers #1 a second time; the first forward runs without
+    a graph, so only the recompute's #1 stores the statistics."""
     m = cfg.model
     accum = cfg.train.optim.grad_accum
-    text = 2 * m.text.num_layers
+    encoders = 1 if m.shared_text_base else 2
+    text = encoders * m.text.num_layers
     sites = len(m.text.lora_targets)
     fine_tuned = 2 if m.variant == "home" else 0
+    again = 2 if m.remat and m.remat_policy != "dots" else 1
     short = (2 * m.cross_layers + 1 + 2 * m.fuse_depth
              if m.dropout > 0 else 0)
-    return {"flash_attention_packed": accum * m.image.num_layers,
+    return {"flash_attention_packed":
+            accum * (m.image.num_layers + (again - 1) * fine_tuned),
             "flash_attention_packed_stats": accum * fine_tuned,
             "flash_attention_packed_bwd": accum * fine_tuned,
-            "flash_attention": accum * text,
+            "flash_attention": accum * text * again,
             "flash_attention_bwd": accum * text,
-            "lora_dropout_fwd": accum * text * sites,
+            "lora_dropout_fwd": accum * text * sites * again,
             "lora_dropout_da": accum * text * sites,
-            "lora_dropout_dh": accum * (text - 2) * sites,
+            "lora_dropout_dh": accum * (text - encoders) * sites,
             "dropout_keep_mask": accum * short}
 
 
@@ -1433,7 +1429,7 @@ def phase_train(timed_steps: int = 3):
     ckpt = save_checkpoint(trainer, "ckpt_baseline")
     del trainer, batch
     torch.cuda.empty_cache()
-    return run["launches"], prof, ckpt
+    return run["launches"], prof, ckpt, run["peak_bytes"]
 
 
 def check_trainer(cfg, device: str):
@@ -1624,6 +1620,340 @@ def phase_home_check(text_layers: int = 2):
                          "flash_attention_packed_bwd",
                          (HOME_CHECK_LOSS_TOL, HOME_CHECK_NORM_TOL,
                           HOME_CHECK_GRAD_TOL, HOME_CHECK_GRAD_L2_TOL))
+
+
+def remat_config(policy: str, text_layers: int = 12, variant="baseline"):
+    cfg = train_config(text_layers)
+    cfg.model.variant = variant
+    cfg.model.remat, cfg.model.remat_policy = True, policy
+    return cfg
+
+
+def shared_config(remat_policy=None, text_layers: int = 12):
+    cfg = train_config(text_layers)
+    cfg.model.shared_text_base = True
+    if remat_policy is not None:
+        cfg.model.remat, cfg.model.remat_policy = True, remat_policy
+    return cfg
+
+
+def run_record(run, prof):
+    """What a training phase prints of drive_trainer's records."""
+    return {"ms_per_step": sorted(run["step_ms"])[len(run["step_ms"]) // 2],
+            "step_ms": run["step_ms"],
+            "examples_per_sec": run["examples_per_sec"],
+            "peak_bytes": run["peak_bytes"],
+            "launches_per_step": run["launches_per_step"],
+            "losses": run["losses"], "device_ms": prof["device_ms"],
+            "device_busy_share": prof["device_busy_share"],
+            "device_ms_by_kind": prof["device_ms_by_kind"],
+            "top_kernels_ms": prof["top_kernels_ms"]}
+
+
+def phase_remat_train(no_remat_peak: int, timed=(("quant", 3), ("full", 1),
+                                               ("attn", 1))):
+    """bench.py --mode train's step at full width and depth with
+    model.remat under `quant` (bench.py's default policy), then `full` and
+    `attn` with fewer timed steps: ms a step, examples/s, device time by
+    kind, busy share, peak memory, launches a step (against
+    expected_launches: #2 and #4 twice a text layer).  The peak under full
+    and quant must lie below the no-remat step's `no_remat_peak`."""
+    import torch
+    out = {}
+    for policy, steps in timed:
+        trainer, batch, run, prof, _ = drive_trainer(
+            remat_config(policy), steps)
+        for loss in run["losses"]:
+            check(TRAIN_LOSS_RANGE[0] < loss < TRAIN_LOSS_RANGE[1],
+                  f"remat {policy} train loss {loss}")
+        out[policy] = run_record(run, prof)
+        log("remat_train", policy=policy, no_remat_peak_bytes=no_remat_peak,
+            **out[policy])
+        del trainer, batch
+        torch.cuda.empty_cache()
+    for policy in ("full", "quant"):
+        check(out[policy]["peak_bytes"] < no_remat_peak,
+              f"remat {policy} peak {out[policy]['peak_bytes']} is not "
+              f"below the no-remat peak {no_remat_peak}")
+    return out
+
+
+def phase_shared_train(timed_steps: int = 2):
+    """The same step with the shared text base (bench.py --shared-base):
+    one encoder pass over both sides' 256 chunks, #4-#6 at the folded rank
+    16 over 98,304 rows, without remat and under remat quant."""
+    import torch
+    out = {}
+    for policy in (None, "quant"):
+        trainer, batch, run, prof, _ = drive_trainer(shared_config(policy),
+                                                     timed_steps)
+        for loss in run["losses"]:
+            check(TRAIN_LOSS_RANGE[0] < loss < TRAIN_LOSS_RANGE[1],
+                  f"shared-base train loss {loss}")
+        key = policy or "no_remat"
+        out[key] = run_record(run, prof)
+        log("shared_train", remat=key, **out[key])
+        del trainer, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _encoder_layers(model):
+    from mmoe_multimodal_rec_tpu_torch.models.bert import BertLayer
+    from mmoe_multimodal_rec_tpu_torch.models.vit import ViTLayer
+    return [m for m in model.modules() if isinstance(m, (BertLayer,
+                                                         ViTLayer))]
+
+
+@contextlib.contextmanager
+def quantise_without_recompute():
+    """Layers under a policy run their forward once, quantising at the
+    named points, with autograd recording it (gradients straight through
+    the dequantised values): the remat forward's math without the
+    recompute."""
+    from mmoe_multimodal_rec_tpu_torch.models import bert, layers, vit
+
+    def plain(attend, feed, policy, params, x, deterministic, rng):
+        state = layers.RematState(policy, rng, deterministic)
+        return feed(attend(x, rng, state), rng, state)
+    real = bert.remat_layer
+    bert.remat_layer = vit.remat_layer = plain
+    try:
+        yield
+    finally:
+        bert.remat_layer = vit.remat_layer = real
+
+
+def remat_gaps(phase, cfg, select, policies, tol):
+    """One trainer at `cfg`; for each policy (set on every encoder layer)
+    one micro-batch's loss and gradients of the trainable parameters that
+    `select` names under remat, launches counted, against the same
+    forward without recompute (`tol`: loss, max and L2 gradient gaps)
+    and, for the record, against no remat."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.models.layers import (
+        resolve_remat_policy)
+    trainer, _ = check_trainer(cfg, "cuda")
+    params = {k: p for k, p in trainer.trainable.items() if select(k)}
+    micro = {k: v[0] for k, v in stacked(cfg, trainer, seed=1).items()}
+    layers = _encoder_layers(trainer.model)
+
+    def grads(policy):
+        for layer in layers:
+            layer.remat = resolve_remat_policy(policy) if policy else None
+        return micro_grads(trainer, params, micro)
+
+    plain_loss, plain = grads(None)
+    recs = {}
+    for policy in policies:
+        reset_launches()
+        loss, got = grads(policy)
+        launches = read_launches()
+        with quantise_without_recompute():
+            ref_loss, ref = grads(policy)
+        gap, gap_l2, worst = grad_gaps(got, ref)
+        a = torch.cat([got[k].float().flatten() for k in plain])
+        b = torch.cat([plain[k].float().flatten() for k in plain])
+        cos = (a @ b / (a.norm() * b.norm())).item()
+        no_gap, no_gap_l2, _ = grad_gaps(got, plain)
+        pcfg = remat_config(policy, cfg.model.text.num_layers,
+                            cfg.model.variant)
+        pcfg.model.compute_dtype = cfg.model.compute_dtype
+        want = {k: n // pcfg.train.optim.grad_accum
+                for k, n in expected_launches(pcfg).items()}
+        rec = {"loss": loss, "loss_gap": abs(loss - ref_loss),
+               "grad_max_rel_gap": gap, "grad_l2_rel_gap": gap_l2,
+               "worst_tensors": worst,
+               "against_no_remat": {"loss_gap": abs(loss - plain_loss),
+                                    "grad_max_rel_gap": no_gap,
+                                    "grad_l2_rel_gap": no_gap_l2,
+                                    "grad_cosine": cos},
+               "launches": launches}
+        recs[policy] = rec
+        check(launches == want, f"{phase} {policy}: launches {launches}, "
+                                f"expected {want}")
+        check(rec["loss_gap"] <= tol[0] and gap <= tol[1]
+              and gap_l2 <= tol[2], f"{phase} {policy}: {rec}")
+        quantised = resolve_remat_policy(policy) is not None and any(
+            resolve_remat_policy(policy).quant_bits(n) for n in
+            ("q", "qkv", "fc1"))
+        if quantised:
+            check(cos > REMAT_QUANT_COSINE, f"{phase} {policy}: gradient "
+                  f"cosine {cos} against no remat")
+        else:
+            check(no_gap <= tol[1] and no_gap_l2 <= tol[2],
+                  f"{phase} {policy}: against no remat {rec}")
+    del trainer, params, micro
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_remat_check(text_layers: int = 2):
+    """remat_check: the six policies on a 2-text-layer baseline in fp32
+    through the kernels (#2, #3, #4-#6), and HoME under quant (bf16; its
+    fine-tuned ViT layers recompute through #1 and #7): each against the
+    same forward without recompute, on the LoRA (and ViT layer 10-11)
+    gradients, with the launches of one micro-batch against
+    expected_launches; the largest gaps against no remat logged."""
+    cfg = remat_config("quant", text_layers)
+    cfg.model.compute_dtype = "float32"
+    lora = lambda name: "lora_" in name
+    recs = remat_gaps("remat_check", cfg, lora, REMAT_POLICIES,
+                      REMAT_CHECK_TOL)
+    log("remat_check", text_layers=text_layers, compute_dtype="float32",
+        tol=dict(zip(("loss", "grad", "grad_l2"), REMAT_CHECK_TOL)),
+        quant_cosine_min=REMAT_QUANT_COSINE, **recs)
+    home = remat_config("quant", text_layers, "home")
+    select = lambda n: "lora_" in n or vit_fine_tuned_but_key_bias(n)
+    home_recs = remat_gaps("remat_check_home", home, select, ("quant",),
+                           (HOME_CHECK_LOSS_TOL, HOME_CHECK_GRAD_TOL,
+                            HOME_CHECK_GRAD_L2_TOL))
+    log("remat_check_home", text_layers=text_layers,
+        compute_dtype="bfloat16", **home_recs)
+    return recs, home_recs
+
+
+def lora_kernel_cases(m, d, r, rate, gen):
+    """#4, #5 and #6 at one shape (bf16): each against its plain version,
+    two calls of each equal bit for bit, per-call times beside the plain
+    version's and the bound.  Returns (cases, records, tensors)."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as ld
+    h = torch.randn(m, d, generator=gen, device="cuda").bfloat16()
+    a = (0.05 * torch.randn(d, r, generator=gen, device="cuda")).bfloat16()
+    dt = torch.randn(m, r, generator=gen, device="cuda").bfloat16()
+    seed = 1234567
+    el = h.element_size()
+    cases = {
+        "lora_dropout_fwd": (lambda: ld.lora_dropout_fwd(h, a, seed, rate),
+                             lambda: ld.lora_dropout_fwd_reference(
+                                 h, a, seed, rate),
+                             (m * d + d * r + m * r) * el),
+        "lora_dropout_da": (lambda: ld.lora_dropout_da(h, dt, seed, rate),
+                            lambda: ld.lora_dropout_da_reference(
+                                h, dt, seed, rate),
+                            (m * d + m * r + d * r) * el),
+        "lora_dropout_dh": (lambda: ld.lora_dropout_dh(dt, a, seed, rate),
+                            lambda: ld.lora_dropout_dh_reference(
+                                dt, a, seed, rate),
+                            (m * r + d * r + m * d) * el),
+    }
+    flops = 2 * m * d * r
+    recs = {}
+    for name, (kernel, plain, nbytes) in cases.items():
+        got = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name}: two calls differ")
+        del again
+        want = plain()
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        check(math.isfinite(err) and err <= LORA_TOL * top,
+              f"{name} (m {m}, r {r}): kernel vs plain max abs err {err} > "
+              f"{LORA_TOL} x {top}")
+        bound_ms, bound_by = bound(nbytes, flops)
+        recs[name] = {"max_abs_err": err, "err_of_largest": err / top,
+                      "ms": cuda_ms(kernel), "host_ms": host_ms(kernel),
+                      "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "io_bytes": nbytes, "flops": flops,
+                      "two_calls_equal": True}
+        del got, want
+    return cases, recs, (h, a, dt, seed)
+
+
+def phase_shared_check(text_layers: int = 2):
+    """shared_check: #4-#6 at the shared base's shape (98,304 rows, the
+    folded rank 16) and #2/#3 at its 256 chunks against their plain
+    versions, timed beside their bounds; then a 2-text-layer model in fp32
+    at rate 0, the shared base against two towers that carry its base
+    (utils/shared_base.shared_to_two_tower), on one micro-batch's loss and
+    LoRA gradients (each side of a stacked factor against its tower's)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sl = SHARED_LORA
+    _, lora, tensors = lora_kernel_cases(sl["m"], sl["d"], sl["r"],
+                                         sl["rate"], gen)
+    del tensors
+    log("shared_lora_kernels", m=sl["m"], d=sl["d"], r=sl["r"],
+        rate=sl["rate"], tol=LORA_TOL, **lora)
+    st = SHARED_TEXT
+    split, _ = split_case("shared_text_dropout_0.1", st["b"], st["l"],
+                          st["heads"], st["dh"], 0.1, gen)
+    torch.cuda.empty_cache()
+
+    shared_model_gaps(text_layers, "cuda")
+    torch.cuda.empty_cache()
+    return lora, split
+
+
+def shared_model_gaps(text_layers: int, device: str):
+    """The model half of shared_check on `device` (phase_shared_check)."""
+    from mmoe_multimodal_rec_tpu_torch.train.loop import Trainer
+    from mmoe_multimodal_rec_tpu_torch.utils.shared_base import (
+        shared_to_two_tower)
+    cfg = shared_config(None, text_layers)
+    m = cfg.model
+    m.compute_dtype = "float32"
+    m.dropout = m.tower_dropout = 0.0
+    t = m.text
+    t.hidden_dropout = t.attention_dropout = t.lora_dropout = 0.0
+    shared, lora_params = check_trainer(cfg, device)
+    micro = {k: v[0] for k, v in stacked(cfg, shared, seed=1).items()}
+    loss, got = micro_grads(shared, lora_params, micro)
+    towers_cfg = copy.deepcopy(cfg)
+    towers_cfg.model.shared_text_base = False
+    towers = Trainer(towers_cfg, device=device)
+    towers.model.load_state_dict(shared_to_two_tower(
+        shared.model.state_dict(), sep="."))
+    tower_params = {k: p for k, p in towers.trainable.items()
+                    if "lora_" in k}
+    tower_loss, want = micro_grads(towers, tower_params, micro)
+    got = shared_to_two_tower(got, sep=".")
+    gap, gap_l2, worst = grad_gaps(got, want)
+    rec = {"text_layers": text_layers, "compute_dtype": "float32",
+           "tensors": len(want), "loss": [loss, tower_loss],
+           "loss_gap": abs(loss - tower_loss), "grad_max_rel_gap": gap,
+           "grad_l2_rel_gap": gap_l2, "worst_tensors": worst,
+           "tol": dict(zip(("loss", "grad", "grad_l2"), SHARED_CHECK_TOL))}
+    log("shared_check", **rec)
+    check(rec["loss_gap"] <= SHARED_CHECK_TOL[0]
+          and gap <= SHARED_CHECK_TOL[1] and gap_l2 <= SHARED_CHECK_TOL[2],
+          f"shared_check: {rec}")
+    return rec
+
+
+def phase_topk_check(timed_steps: int = 1):
+    """topk_check: a few full-width steps of the baseline and HoME with
+    gate_type=topk (gate_topk 2): finite losses, launches as the dense
+    model's, and a balance term in (0, 2 n_experts] in training mode (two
+    gates' Switch terms, each 1 at uniform routing; the loss adds it at
+    lambda_gate_balance)."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.train.loop import dropout_generator
+    out = {}
+    for variant in ("baseline", "home"):
+        cfg = train_config()
+        cfg.model.variant = variant
+        cfg.model.gate_type = "topk"
+        trainer, batch, run, prof, _ = drive_trainer(cfg, timed_steps)
+        micro = {k: v[0] for k, v in batch.items()}
+        with torch.no_grad():
+            aux = trainer.model(micro, deterministic=False,
+                                rng=dropout_generator(0, 0, 0)).aux
+        balance = aux["gate_balance"].item()
+        n = (cfg.model.home_shared_experts + cfg.model.home_task_experts
+             if variant == "home" else cfg.model.n_experts)
+        check(all(math.isfinite(x) for x in run["losses"])
+              and 0.0 < balance <= 2 * n,
+              f"topk {variant}: losses {run['losses']}, balance {balance}")
+        out[variant] = {"losses": run["losses"], "gate_balance": balance,
+                        "ms_per_step": run_record(run, prof)["ms_per_step"]}
+        log("topk_check", variant=variant, **out[variant])
+        del trainer, batch, micro
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_keep_mask_kernel(rate: float = 0.1):
@@ -2769,14 +3099,23 @@ def main() -> int:
     pred, launches, serving = phase_predictor(batch=64, forwards=3,
                                               profiled_forwards=2)
     phase_server(pred)
+    # a reference cycle holds the Predictor's model until Python's
+    # collector runs: collect it, so the training phases' peaks are their
+    # own
     del pred
+    gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(WORK, ignore_errors=True)
     try:
-        train_launches, train_prof, ckpt = phase_train()
+        train_launches, train_prof, ckpt, peak = phase_train()
         phase_train_check()
         home_launches, home_prof, home_ckpt = phase_home_train()
         phase_home_check()
+        remat = phase_remat_train(peak)
+        shared = phase_shared_train()
+        phase_remat_check()
+        shared_lora, shared_split = phase_shared_check()
+        phase_topk_check()
         shards = write_eval_shards()
         phase_eval(ckpt, shards)
         phase_home_eval(home_ckpt, shards)
@@ -2842,10 +3181,15 @@ def main() -> int:
             "ms_back_to_back": step["ms"],
             "bound_back_to_back_ms": step["bound_ms"],
             "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
+            "launches_remat_quant":
+                remat["quant"]["launches_per_step"][wrapper],
+            "launches_shared": shared["no_remat"]["launches_per_step"][
+                wrapper],
             **{name: {k: rec[f"{side}_{k}"] for k in per_call_keys
                       if f"{side}_{k}" in rec}
                for name, rec in (("per_call", split),
-                                 ("per_call_rate_0", split0))}})
+                                 ("per_call_rate_0", split0),
+                                 ("per_call_shared_b256", shared_split))}})
     for wrapper, line in (("lora_dropout_fwd", 170), ("lora_dropout_da", 199),
                           ("lora_dropout_dh", 232)):
         rec, step = lora[wrapper], lora_step[wrapper]
@@ -2865,7 +3209,14 @@ def main() -> int:
             "per_call": {k: rec[k] for k in ("ms", "device_ms", "host_ms",
                                              "plain_ms", "bound_ms",
                                              "max_abs_err",
-                                             "err_of_largest")}})
+                                             "err_of_largest")},
+            "launches_remat_quant":
+                remat["quant"]["launches_per_step"][wrapper],
+            "launches_shared": shared["no_remat"]["launches_per_step"][
+                wrapper],
+            "per_call_shared_r16": {k: shared_lora[wrapper][k] for k in (
+                "ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "err_of_largest")}})
     records.append({
         "name": "flash_attention_packed_bwd", "route": "cuda",
         "source": f"{source}flash_attention_bwd.cu",

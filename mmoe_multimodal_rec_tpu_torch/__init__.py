@@ -3,20 +3,26 @@ mmoe_multimodal_rec_tpu for NVIDIA Hopper (H100).
 
 Module paths and class names mirror the JAX package, so each module's
 counterpart is easy to find; nothing here imports jax or the JAX package.
-Ported so far, the LoRA-merged serving path and the baseline training
-step:
+Ported so far:
 
-- config, host text packing and the shard data path (copies of the JAX
-  package's jax-free modules)                           -> `config.py`, `data/`
-- the self-attention kernels, hand-written CUDA for sm_90a, with their
-  plain PyTorch versions: packed-qkv forward, split-q/k/v forward and
-  backward with in-kernel dropout                       -> `ops/`, `csrc/`
-- the baseline MMoE model with its dropout sites        -> `models/`
+- config, host text packing, the shard data path and the offline
+  pipeline (copies of the JAX package's jax-free modules, with the
+  native WordPiece tokenizer)                           -> `config.py`,
+                                                           `data/`, `native/`
+- every Pallas kernel of the JAX package as a hand-written CUDA kernel
+  for sm_90a, with its plain PyTorch version: packed and split attention
+  forward and backward with in-kernel dropout, the fused LoRA dropout
+  (forward, dA, dh), the short attentions' keep mask    -> `ops/`, `csrc/`
+- the baseline and HoME models with their dropout sites, per-layer
+  recompute under the six remat policies, the shared text base and the
+  top-k gate                                            -> `models/`
 - losses, optimizer groups, the accumulated step, the
   Trainer, checkpoints, preemption                      -> `train/`
-- LoRA merge, JAX param conversion, metrics logging     -> `utils/`
-- Predictor + HTTP server                               -> `eval/`
-- CLI `synth`, `train`, `serve`                         -> `cli.py`
+- evaluation with HoME BatchNorm recalibration, the Predictor and the
+  HTTP server                                           -> `eval/`
+- LoRA merge, JAX param, shared-base and scan-layers conversion,
+  reference checkpoints, metrics logging                -> `utils/`
+- the JAX CLI's twelve commands                         -> `cli.py`
 """
 
 __version__ = "0.1.0"

@@ -33,17 +33,12 @@ class TextEncoderConfig:
     pad_token_id: int = 0
     # LoRA (ref model.py:592-599: r=8, alpha=32, dropout=0.1 on query/value)
     lora_rank: int = 8
-    # lax.scan ONE compiled layer body over stacked [num_layers, ...] params
-    # instead of unrolling num_layers copies into the HLO: identical math
-    # (tests/test_scan_layers.py), measured 1.9x faster cold compile of the
-    # flagship train step (302 -> 162 s) at a 20% step-time cost (136 ->
-    # 109 ex/s — scan serializes the per-layer weight slices XLA otherwise
-    # prefetches across layers); an edit-compile-run iteration knob, NOT the
-    # production default (BENCHMARKS.md "Compile time").  Param layout
-    # changes to `encoder/layers/layer/...`; utils/scan_convert.py converts
-    # existing unrolled checkpoints.  Text encoders only — the HoME ViT
-    # keeps its unrolled layout because its last-2-layers finetune partition
-    # (train/optimizer.label_param) splits at layer granularity.
+    # The JAX package's lax.scan over stacked [num_layers, ...] text-layer
+    # params (a compile-time knob there, the same math).  The port runs the
+    # same math unrolled: a JAX tree in the stacked `encoder/layers/layer`
+    # layout loads through utils/convert.params_from_jax, which unstacks
+    # it (utils/scan_convert.py), and the port's own checkpoints stay
+    # unrolled.
     scan_layers: bool = False
     lora_alpha: float = 32.0
     lora_dropout: float = 0.1
@@ -130,16 +125,14 @@ class ModelConfig:
     variant: str = "baseline"        # "baseline" | "home"
     # Run both text experts as ONE encoder pass over the concatenated
     # [user; item] chunk batch: one shared frozen BGE base + per-side LoRA
-    # adapters (models/text_expert.DualTextExpert).  Mathematically
-    # identical to the two-tower layout whenever the two base trees are
-    # equal — which the reference workflow guarantees (both towers load the
-    # same pretrained encoder and the base is frozen, ref train.py:118-123,
-    # 151-186; exactness tested in tests/test_shared_base.py).  Halves the
-    # encoder matmul launches and runs them at 2x M (+~20% MXU rate on the
-    # [M,768]x[768,768] projections, BENCHMARKS.md "shared text base"),
-    # and drops one full frozen base copy from HBM.  Param layout changes
-    # (text_experts/...); utils/shared_base.py converts checkpoints both
-    # ways.  Default off = exact reference checkpoint layout.
+    # adapters (models/text_expert.DualTextExpert).  Identical to the
+    # two-tower layout whenever the two base trees are equal, which the
+    # reference workflow keeps (both towers load the same pretrained
+    # encoder and the base is frozen, ref train.py:118-123, 151-186; held
+    # in tests/test_torch_shared_base.py).  Half the encoder launches at
+    # twice the rows, and one frozen base copy fewer in device memory.
+    # Param layout changes (text_experts/...); utils/shared_base.py
+    # converts checkpoints both ways.  Default off = the reference layout.
     shared_text_base: bool = False
     text: TextEncoderConfig = field(default_factory=TextEncoderConfig)
     image: ImageEncoderConfig = field(default_factory=ImageEncoderConfig)
@@ -148,23 +141,27 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"  # replaces CUDA AMP fp16 (ref train.py:241)
     param_dtype: str = "float32"
     use_flash_attention: bool = True # Pallas fused attention on TPU
-    remat: bool = False              # jax.checkpoint each encoder layer
-                                     # (HBM <-> FLOPs trade, SURVEY build note)
-    remat_policy: str = "quant"      # "full" (recompute all) | "dots" (save
-                                     # every dot output; too big at prod
-                                     # batch) | "attn" (save the
-                                     # post-attention residual only — skips
-                                     # the attention-kernel + out-proj
-                                     # recompute) | "quant" ("attn" + int8
-                                     # saves of q/k/v + fc1 preact: backward
-                                     # dequantizes instead of recomputing the
-                                     # 7D^2/layer of matmuls — fastest
-                                     # measured, production default; see
-                                     # models/layers.resolve_remat_policy)
-                                     # | "quant4" ("quant" with the fc1
-                                     # preact packed to int4 — half that
-                                     # save's HBM traffic; convergence-gated
-                                     # in tests/test_quant_convergence.py)
+    remat: bool = False              # recompute each encoder layer in the
+                                     # backward (models/layers.remat_layer)
+    remat_policy: str = "quant"      # what a remat-ted layer saves
+                                     # (models/layers.resolve_remat_policy):
+                                     # "full" nothing | "attn" the
+                                     # post-attention residual | "quant"
+                                     # "attn" + int8 q/k/v (qkv) and fc1
+                                     # preactivation, the training forward
+                                     # consuming their dequantised values |
+                                     # "quant4" "quant" with fc1 in int4 |
+                                     # "quant_fc1" "attn" + int8 fc1.
+                                     # "dots" (JAX: save every product's
+                                     # output) cannot be expressed by the
+                                     # port's recompute, which saves named
+                                     # tensors only: it runs the layer
+                                     # without recompute, the same numerics
+                                     # at more memory.  The attention
+                                     # kernels' backward takes the forward's
+                                     # softmax statistics, which no JAX
+                                     # name covers, so every recompute runs
+                                     # the attention forward again.
 
 
 @dataclass

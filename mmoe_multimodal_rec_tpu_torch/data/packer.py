@@ -25,7 +25,7 @@ Replicated reference quirks (deliberate, for checkpoint parity):
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -179,6 +179,20 @@ class TextPacker:
 
         return PackedBatch(tokens=tokens, sent_chunk=sent_chunk,
                            sent_tok=sent_tok, n_chunks=chunk_row)
+
+
+def pack_pair(packer: TextPacker, user_texts: Sequence[str],
+              item_texts: Sequence[str],
+              chunk_budget: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Pack both text sides into the model's batch-key layout."""
+    u = packer.pack(user_texts, chunk_budget)
+    i = packer.pack(item_texts, chunk_budget)
+    return {
+        "user_tokens": u.tokens, "user_sent_chunk": u.sent_chunk,
+        "user_sent_tok": u.sent_tok,
+        "item_tokens": i.tokens, "item_sent_chunk": i.sent_chunk,
+        "item_sent_tok": i.sent_tok,
+    }
 
 
 def packer_from_config(cfg) -> TextPacker:

@@ -168,3 +168,10 @@ class HashTokenizer:
             ids = ids[:max_length]
         return ids
 
+
+def load_tokenizer(vocab_path: Optional[str]):
+    """The tokenizer over `vocab_path` (config.data.vocab_path), or the
+    vocab-free HashTokenizer without one."""
+    if vocab_path:
+        return WordPieceTokenizer.from_vocab_file(vocab_path)
+    return HashTokenizer()

@@ -1,7 +1,8 @@
-"""Dense-gated two-task MMoE head (ref model.py:513-577).
+"""Two-task MMoE head (ref model.py:513-577) and its gates.
 
-Port of mmoe_multimodal_rec_tpu/models/heads.py with the dense gate only
-(TopKGate is a later slice).
+Port of mmoe_multimodal_rec_tpu/models/heads.py: the dense gate (the
+reference's, and the default) and the opt-in top-k gate with its
+Switch-style load-balance term (model.gate_type="topk").
 """
 from __future__ import annotations
 
@@ -23,6 +24,58 @@ class DenseGate(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.softmax(self.fc(x).float(), dim=-1)
+
+
+class TopKGate(nn.Module):
+    """softmax(Linear(d -> n_expert)) masked to each row's top k and
+    renormalised, and the Switch balance term n * sum_i f_i P_i (f_i: the
+    share of rows routing to expert i, the top-k mask's mean / k; P_i: the
+    mean probability).  The top k come from a stable descending sort, so a
+    tie takes the lower index, as lax.top_k does (torch.topk promises no
+    order among equal values)."""
+
+    def __init__(self, d: int, n_expert: int, k: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc = Dense(d, n_expert, dtype)
+        self.n_expert = n_expert
+        self.k = k
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        probs = torch.softmax(self.fc(x).float(), dim=-1)
+        k = min(self.k, self.n_expert)
+        idx = torch.sort(probs, dim=-1, descending=True,
+                         stable=True).indices[:, :k]
+        mask = torch.zeros_like(probs).scatter_(1, idx, 1.0)
+        w = probs * mask
+        w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+        frac = mask.mean(0) / k
+        balance = self.n_expert * (frac * probs.mean(0)).sum()
+        return w, balance
+
+
+def make_gate(gate_type: str, d: int, n_expert: int, topk: int,
+              dtype: torch.dtype) -> nn.Module:
+    """One task's gate: DenseGate, or TopKGate for gate_type "topk"."""
+    if gate_type == "topk":
+        return TopKGate(d, n_expert, topk, dtype)
+    if gate_type != "dense":
+        raise ValueError(f"unknown gate_type {gate_type!r}")
+    return DenseGate(d, n_expert, dtype)
+
+
+def make_gates(gates, query: torch.Tensor):
+    """Per-task gate weights and the summed balance term (0 for dense), as
+    JAX make_gates returns them."""
+    weights, balance = [], torch.zeros((), device=query.device)
+    for gate in gates:
+        out = gate(query)
+        if isinstance(gate, TopKGate):
+            out, b = out
+            balance = balance + b
+        weights.append(out)
+    return weights, balance
 
 
 class Tower(nn.Module):
@@ -53,10 +106,11 @@ class TwoTaskMMoE(nn.Module):
 
     def __init__(self, d: int, n_expert: int = 6, tower_hidden: int = 256,
                  dtype: torch.dtype = torch.float32,
-                 tower_dropout: float = 0.0):
+                 tower_dropout: float = 0.0, gate_type: str = "dense",
+                 gate_topk: int = 2):
         super().__init__()
-        self.gate_good = DenseGate(d, n_expert, dtype)
-        self.gate_best = DenseGate(d, n_expert, dtype)
+        self.gate_good = make_gate(gate_type, d, n_expert, gate_topk, dtype)
+        self.gate_best = make_gate(gate_type, d, n_expert, gate_topk, dtype)
         self.tower_good = Tower(d, tower_hidden, dtype, tower_dropout)
         self.tower_best = Tower(d, tower_hidden, dtype, tower_dropout)
 
@@ -65,10 +119,11 @@ class TwoTaskMMoE(nn.Module):
                 rng: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         query = expert_vecs.mean(1)
-        w_good = self.gate_good(query).to(expert_vecs.dtype)
-        w_best = self.gate_best(query).to(expert_vecs.dtype)
-        fused_good = torch.einsum("bn,bnd->bd", w_good, expert_vecs)
-        fused_best = torch.einsum("bn,bnd->bd", w_best, expert_vecs)
-        balance = torch.zeros((), device=expert_vecs.device)
+        (w_good, w_best), balance = make_gates(
+            (self.gate_good, self.gate_best), query)
+        fused_good = torch.einsum("bn,bnd->bd", w_good.to(expert_vecs.dtype),
+                                  expert_vecs)
+        fused_best = torch.einsum("bn,bnd->bd", w_best.to(expert_vecs.dtype),
+                                  expert_vecs)
         return (self.tower_good(fused_good, deterministic, rng),
                 self.tower_best(fused_best, deterministic, rng), balance)

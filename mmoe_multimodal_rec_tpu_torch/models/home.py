@@ -2,8 +2,8 @@
 
 Port of mmoe_multimodal_rec_tpu/models/home.py (ref model_HoME.py:28-35
 ExpertMLP, :224-243 FeatureGate/SelfGate, :530-638 HOME_MMoE_Complete,
-train_HoME.py:100-116 HomeExpertWrapper), with the dense gate only
-(`gate_type=topk` is a later slice and raises in models/mmoe.py).
+train_HoME.py:100-116 HomeExpertWrapper), with the dense or the top-k
+gate (model.gate_type).
 
 The wrappers' BatchNorm statistics are taken over the whole micro-batch on
 its one card; models/layers.BatchNorm1D keeps the running ones as buffers.
@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .heads import DenseGate
+from .heads import make_gate, make_gates
 from .layers import BatchNorm1D, Dense, LayerNorm, Mlp, dropout, gelu_exact
 
 
@@ -74,14 +74,17 @@ class HomeMMoEHead(nn.Module):
     """HOME_MMoE_Complete (ref model_HoME.py:530-638): [B, 6, D] -> flatten
     -> input projection + mean residual = shared input; FeatureGate-private
     inputs through 4 shared and 2 x 2 task expert MLPs; SelfGate; a dense
-    gate per task over its (shared + task) experts; weighted sums; towers.
-    Returns (logit_good, logit_best, balance), balance 0 (dense gates)."""
+    gate per task over its (shared + task) experts, dense or top-k
+    (`gate_type`); weighted sums; towers.  Returns (logit_good,
+    logit_best, balance), balance the top-k gates' summed load-balance
+    term (0 for dense gates)."""
 
     def __init__(self, d: int, num_input_experts: int = 6,
                  n_shared_experts: int = 4, n_task_experts: int = 2,
                  expert_hidden: int = 1024, expert_dropout: float = 0.1,
                  tower_hidden: int = 512, tower_dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, gate_type: str = "dense",
+                 gate_topk: int = 2):
         super().__init__()
         self.n_shared = n_shared_experts
         self.n_task = n_task_experts
@@ -101,8 +104,8 @@ class HomeMMoEHead(nn.Module):
         self.sg_good = SelfGate(d, dtype)
         self.sg_best = SelfGate(d, dtype)
         n_pool = n_shared_experts + n_task_experts
-        self.gate_good = DenseGate(d, n_pool, dtype)
-        self.gate_best = DenseGate(d, n_pool, dtype)
+        self.gate_good = make_gate(gate_type, d, n_pool, gate_topk, dtype)
+        self.gate_best = make_gate(gate_type, d, n_pool, gate_topk, dtype)
         self.tower_good = HomeTower(d, tower_hidden, tower_dropout, dtype)
         self.tower_best = HomeTower(d, tower_hidden, tower_dropout, dtype)
 
@@ -124,14 +127,14 @@ class HomeMMoEHead(nn.Module):
                 gate(shared, getattr(self, f"{group}_expert_{i}")(
                     inputs[group][:, i], deterministic, rng))
                 for i in range(n_exp)]
+        weights, balance = make_gates((self.gate_good, self.gate_best),
+                                      shared)
         logits = []
-        for task in ("good", "best"):
+        for task, w in zip(("good", "best"), weights):
             experts = torch.stack(enhanced["meta"] + enhanced[task], dim=1)
-            w = getattr(self, f"gate_{task}")(shared).to(experts.dtype)
-            fused = torch.einsum("bn,bnd->bd", w, experts)
+            fused = torch.einsum("bn,bnd->bd", w.to(experts.dtype), experts)
             logits.append(getattr(self, f"tower_{task}")(fused,
                                                          deterministic, rng))
-        balance = torch.zeros((), device=expert_vecs.device)
         return logits[0], logits[1], balance
 
 

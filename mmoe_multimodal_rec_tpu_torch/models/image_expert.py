@@ -36,9 +36,10 @@ class ItemImageExpert(nn.Module):
 
     def __init__(self, cfg: ImageEncoderConfig,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
-                 dropout: float = 0.1, remat: bool = False):
+                 dropout: float = 0.1, remat: bool = False,
+                 remat_policy: str = "dots"):
         super().__init__()
-        self.backbone = ViTEncoder(cfg, dtype, use_flash, remat)
+        self.backbone = ViTEncoder(cfg, dtype, use_flash, remat, remat_policy)
         self.norm = LayerNorm(cfg.hidden_size, dtype=dtype)
         self.pool_type = cfg.pool_type
         self.dtype = dtype
@@ -59,10 +60,10 @@ class ImageExpertWithProjection(nn.Module):
 
     def __init__(self, cfg: ImageEncoderConfig,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: str = "dots"):
         super().__init__()
         d = cfg.hidden_size
-        self.backbone = ViTEncoder(cfg, dtype, use_flash, remat)
+        self.backbone = ViTEncoder(cfg, dtype, use_flash, remat, remat_policy)
         self.projection_head = Mlp(d, 2 * d, d, gelu_exact, dtype)
 
     def forward(self, patches: torch.Tensor, *, deterministic: bool = True,

@@ -16,6 +16,16 @@ do.  Given the same seeds, the masks equal JAX's bit for bit, except on
 the einsum attention path, where JAX draws `jax.random.bernoulli` bits that
 torch cannot reproduce and the port uses the attention counter hash.
 
+Remat (`model.remat`, models/layers.resolve_remat_policy in JAX): an
+encoder layer under a policy runs through `remat_layer`, one
+autograd.Function that keeps only the layer input, the dropout seeds and
+the tensors the policy names (`attn_res`, the int8/int4 `quant_save`s)
+and recomputes the rest in its backward.  The seeds are drawn once, in the
+first forward, onto a `SeedTape` that the recompute replays: the kernels
+launch through ctypes and draw from an explicit generator, so neither
+torch.utils.checkpoint's RNG restore nor dispatcher-level selective
+checkpointing would see them.
+
 Parameters follow the JAX tree's names (utils/convert.py maps `kernel`
 [in, out] to `weight` [out, in], `scale`/`embedding` to `weight`), and every
 module that owns parameters has `init_params(generator)` reproducing the
@@ -24,7 +34,7 @@ flax initializers' distributions; `init_weights` applies them all.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,7 +70,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def draw_seed(rng: Optional[torch.Generator]) -> int:
     """One dropout site's int32 seed in [0, 2^31 - 1), as JAX draws it,
-    from the micro-batch's generator (never from global state)."""
+    from the micro-batch's generator (never from global state), or the
+    next seed of a `SeedTape`."""
+    if isinstance(rng, SeedTape):
+        return rng.draw()
     if rng is None:
         raise ValueError("a training forward (deterministic=False) needs "
                          "rng, the micro-batch's torch.Generator")
@@ -81,6 +94,258 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     if rate == 0.0 or deterministic:
         return x
     return hash_dropout(x, rate, draw_seed(rng))
+
+
+class SeedTape:
+    """The dropout seeds of one recomputed stretch of a layer: drawn from
+    the micro-batch's generator in call order during the first forward,
+    and replayed in the same order by each recompute (`replay`)."""
+
+    def __init__(self, rng: Optional[torch.Generator]):
+        self.rng = rng
+        self.seeds = []
+        self.pos = None
+
+    def draw(self) -> int:
+        if self.pos is None:
+            self.seeds.append(draw_seed(self.rng))
+            return self.seeds[-1]
+        self.pos += 1
+        return self.seeds[self.pos - 1]
+
+    def replay(self) -> "SeedTape":
+        self.pos = 0
+        return self
+
+
+class RematPolicy(NamedTuple):
+    """The checkpoint names a remat policy saves, as JAX's
+    `save_only_these_names` lists them."""
+    names: Tuple[str, ...]
+
+    def quant_bits(self, name: str) -> int:
+        """8 or 4 where the policy saves `name` quantised, else 0."""
+        for bits in (8, 4):
+            if f"{name}_q{bits}" in self.names:
+                return bits
+        return 0
+
+
+_QKV_SAVES = ("q_q8", "q_sc", "k_q8", "k_sc", "v_q8", "v_sc", "qkv_q8",
+              "qkv_sc")
+REMAT_POLICIES = {
+    "full": RematPolicy(()),
+    "dots": None,
+    "attn": RematPolicy(("attn_res",)),
+    "quant": RematPolicy(("attn_res",) + _QKV_SAVES + ("fc1_q8", "fc1_sc")),
+    "quant4": RematPolicy(("attn_res",) + _QKV_SAVES + ("fc1_q4", "fc1_sc")),
+    "quant_fc1": RematPolicy(("attn_res", "fc1_q8", "fc1_sc")),
+}
+
+
+def resolve_remat_policy(name: str) -> Optional[RematPolicy]:
+    """models/layers.resolve_remat_policy: what an encoder layer under
+    `name` saves for its backward; the rest is recomputed.
+    - "full": nothing (the layer input only);
+    - "attn": the post-attention residual `attn_res`;
+    - "quant": "attn" plus per-row int8 saves of q/k/v (qkv on the packed
+      path) and of the fc1 preactivation; the training forward consumes
+      their dequantised values, and the backward restores them instead of
+      recomputing the projections;
+    - "quant4": "quant" with the fc1 save packed to int4;
+    - "quant_fc1": "attn" plus the int8 fc1 save.
+    "dots" (save every product's output) returns None: the port runs such
+    a layer without recompute, which keeps every activation the backward
+    needs, so its numerics are JAX's and its memory is larger."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r}")
+    return REMAT_POLICIES[name]
+
+
+class _ValueWithGradTo(torch.autograd.Function):
+    """Returns `value`; the gradient flows unchanged to `x` (straight
+    through), as models/layers._value_with_grad_to."""
+
+    @staticmethod
+    def forward(ctx, value, x):
+        return value.view_as(value)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+def quantize(x: torch.Tensor, bits: int = 8
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric quantisation of x [..., n] as JAX's quant_save:
+    (q int8, scale fp32 [..., 1]).  int8: scale = rowmax|x| / 127.  int4:
+    scale = rowmax|x| / 7, and the column halves pack two to a byte,
+    `lo & 0x0F | hi << 4` ([..., n/2]).  Rounds half to even after a true
+    division by the scale, as jnp.round(x / sc) does."""
+    x32 = x.detach().float()
+    sc = (x32.abs().amax(-1, keepdim=True)
+          / (127.0 if bits == 8 else 7.0)).clamp_min(1e-12)
+    q = torch.round(x32 / sc).to(torch.int8)
+    if bits == 8:
+        return q, sc
+    if bits != 4:
+        raise ValueError(f"quantize: bits must be 8 or 4, got {bits}")
+    n = q.shape[-1]
+    if n % 2:
+        raise ValueError(f"int4 packing needs an even last dim, got {n}")
+    return (q[..., :n // 2] & 0x0F) | (q[..., n // 2:] << 4), sc
+
+
+def dequantize(q: torch.Tensor, sc: torch.Tensor, bits: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The value `quantize` saved, in `dtype`; int4 nibbles come back by
+    arithmetic shifts."""
+    if bits == 4:
+        q = torch.cat([(q << 4) >> 4, q >> 4], dim=-1)
+    return (q.float() * sc).to(dtype)
+
+
+def quant_save(x: torch.Tensor, bits: int = 8):
+    """models/layers.quant_save: (the dequantised value, whose gradient
+    passes unchanged to x, and the saved (q, scale))."""
+    q, sc = quantize(x, bits)
+    return _ValueWithGradTo.apply(dequantize(q, sc, bits, x.dtype), x), (q, sc)
+
+
+class _Restored(torch.autograd.Function):
+    """A quantised save restored in the recompute: the forward returns the
+    dequantised value and runs no product; the backward sends the gradient
+    to what JAX's straight-through reaches, the exact projection
+    y = x W^T + b (+ delta): dx = g W, dW = g^T x, db = sum g, and g to the
+    LoRA delta."""
+
+    @staticmethod
+    def forward(ctx, value, x, w, b, delta):
+        ctx.save_for_backward(x, w)
+        ctx.has_delta = delta is not None
+        return value.view_as(value)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[1]:
+            dx = g @ w
+        if ctx.needs_input_grad[2]:
+            dw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        if ctx.needs_input_grad[3]:
+            db = g.reshape(-1, g.shape[-1]).sum(0)
+        return None, dx, dw, db, (g if ctx.has_delta else None)
+
+
+class RematState:
+    """One remat-ted layer's saves and seeds.  The first forward (no
+    autograd graph) quantises at the named points and keeps the saves; the
+    recompute (`restoring`) takes them back: `restore` stands for a saved
+    projection, so its product does not run again."""
+
+    def __init__(self, policy: RematPolicy, rng, deterministic: bool):
+        self.policy = policy
+        # JAX quantises only in a training forward (bert.py:146-149)
+        self.quantises = not deterministic
+        self.tapes = (SeedTape(rng), SeedTape(rng))
+        self.saved: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        self.restoring = False
+
+    def bits(self, name: str) -> int:
+        return self.policy.quant_bits(name) if self.quantises else 0
+
+    def save(self, name: str, y: torch.Tensor) -> torch.Tensor:
+        """First forward: keep y quantised; the layer goes on with the
+        dequantised value (its gradient straight through to y, for a
+        forward that autograd records)."""
+        bits = self.bits(name)
+        if not bits:
+            return y
+        value, self.saved[name] = quant_save(y, bits)
+        return value
+
+    def restore(self, name: str, x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor, delta: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Recompute: the saved value of y = F.linear(x, w, b) (+ delta),
+        its gradient routed as the exact y's."""
+        q, sc = self.saved[name]
+        value = dequantize(q, sc, self.bits(name), x.dtype)
+        return _Restored.apply(value, x, w, b, delta)
+
+
+class _LayerRecompute(torch.autograd.Function):
+    """One encoder layer, `feed(attend(x))`, under a remat policy.  The
+    forward runs it without a graph and saves x, `attn_res` = attend(x)
+    where the policy names it, and the quantised saves.  The backward
+    rebuilds the graph with the saves put back and the seeds replayed:
+    with `attn_res` saved, first feed from it and then attend from x (the
+    two recomputed graphs never live together); without, the whole layer
+    from x.  Returns the gradients of x and of `params`, the layer's
+    parameters that need one."""
+
+    @staticmethod
+    def forward(ctx, attend, feed, state, x, *params):
+        a = attend(x, state.tapes[0], state)
+        out = feed(a, state.tapes[1], state)
+        ctx.keep_res = "attn_res" in state.policy.names
+        ctx.names = sorted(state.saved)
+        ctx.attend, ctx.feed, ctx.state, ctx.params = attend, feed, state, \
+            params
+        ctx.save_for_backward(
+            x, *((a,) if ctx.keep_res else ()),
+            *(t for n in ctx.names for t in state.saved[n]))
+        state.saved = {}
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        state, params = ctx.state, list(ctx.params)
+        x, *rest = ctx.saved_tensors
+        if ctx.keep_res:
+            a, *rest = rest
+        state.saved = {n: (rest[2 * i], rest[2 * i + 1])
+                       for i, n in enumerate(ctx.names)}
+        state.restoring = True
+        want_x = ctx.needs_input_grad[3]
+        with torch.enable_grad():
+            xi = x.detach().requires_grad_(want_x)
+            wrt = ([xi] if want_x else []) + params
+            if ctx.keep_res:
+                ai = a.detach().requires_grad_(True)
+                out = ctx.feed(ai, state.tapes[1].replay(), state)
+                ga, *late = torch.autograd.grad(out, [ai] + params, g,
+                                                allow_unused=True)
+                res = ctx.attend(xi, state.tapes[0].replay(), state)
+                grads = torch.autograd.grad(res, wrt, ga, allow_unused=True)
+            else:
+                out = ctx.feed(ctx.attend(xi, state.tapes[0].replay(), state),
+                               state.tapes[1].replay(), state)
+                grads = torch.autograd.grad(out, wrt, g, allow_unused=True)
+                late = [None] * len(params)
+        state.saved = {}
+        gx = grads[0] if want_x else None
+        gp = grads[1:] if want_x else grads
+        return (None, None, None, gx,
+                *(b if a is None else a if b is None else a + b
+                  for a, b in zip(gp, late)))
+
+
+def remat_layer(attend: Callable, feed: Callable, policy: RematPolicy,
+                params, x: torch.Tensor, deterministic: bool, rng
+                ) -> torch.Tensor:
+    """`feed(attend(x))` under `policy`, where attend(x, rng, remat) ->
+    attn_res and feed(attn_res, rng, remat) -> the layer's output.  When
+    autograd needs nothing from the layer (eval, or a frozen layer whose
+    input needs no gradient) there is nothing to recompute: the layer runs
+    once, still quantising at the named points in a training forward, as
+    the JAX forward does whatever the backward keeps."""
+    params = [p for p in params if p.requires_grad]
+    state = RematState(policy, rng, deterministic)
+    if not torch.is_grad_enabled() or not (x.requires_grad or params):
+        return feed(attend(x, rng, state), rng, state)
+    return _LayerRecompute.apply(attend, feed, state, x, *params)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -118,7 +383,9 @@ class LoRADense(nn.Module):
     """A q/k/v projection with its LoRA adapter kept apart:
     y = x W + b + (alpha/r) drop(x) A B, peft semantics.  Params as
     ProjParams lays them out: base/{weight, bias}, lora_a [in, r],
-    lora_b [r, out].
+    lora_b [r, out]; with `sides` = 2 (the shared-base text encoder,
+    models/text_expert.DualTextExpert) side-stacked lora_a [2, in, r] and
+    lora_b [2, r, out] over one base.
 
     The LoRA input dropout, as the JAX `drop_matmul`: with `fused_dropout`
     set and a shape `lora_fused_ok` admits, `lora_dropout_matmul` (the
@@ -130,27 +397,42 @@ class LoRADense(nn.Module):
 
     def __init__(self, in_features: int, out_features: int, rank: int,
                  alpha: float, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0, fused_dropout: bool = False):
+                 dropout: float = 0.0, fused_dropout: bool = False,
+                 sides: int = 1):
         super().__init__()
+        if sides not in (1, 2):
+            raise ValueError(f"LoRADense takes 1 or 2 sides, got {sides}")
+        side = () if sides == 1 else (sides,)
         self.base = Dense(in_features, out_features, dtype)
-        self.lora_a = nn.Parameter(torch.empty(in_features, rank))
-        self.lora_b = nn.Parameter(torch.empty(rank, out_features))
+        self.lora_a = nn.Parameter(torch.empty(*side, in_features, rank))
+        self.lora_b = nn.Parameter(torch.empty(*side, rank, out_features))
+        self.sides = sides
         self.scale = alpha / rank
         self.dtype = dtype
         self.dropout = dropout
         self.fused_dropout = fused_dropout
 
     def init_params(self, generator):
-        bound = 1.0 / math.sqrt(self.lora_a.shape[0])
+        bound = 1.0 / math.sqrt(self.lora_a.shape[-2])
         with torch.no_grad():
             self.lora_a.uniform_(-bound, bound, generator=generator)
             self.lora_b.zero_()
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = self.base(x)
+    def delta(self, x: torch.Tensor, deterministic: bool = True,
+              rng: Optional[torch.Generator] = None,
+              split: int = 0) -> torch.Tensor:
+        """(alpha/r) drop(x) A B.  Two sides fold into ONE rank-2r chain,
+        as JAX layers.py:431-455: t = drop(x) [A0 | A1], then rows of x
+        before `split` keep only t's first r columns and the other rows
+        only its last r (which also zeroes the other side's gradients),
+        then t @ [B0; B1]."""
         h = x.to(self.dtype)
         a = self.lora_a.to(self.dtype)
+        b = self.lora_b.to(self.dtype)
+        if self.sides == 2:
+            r = a.shape[-1]
+            a = torch.cat([a[0], a[1]], dim=-1)
+            b = b.reshape(2 * r, -1)
         if (self.fused_dropout and not deterministic and self.dropout > 0.0
                 and lora_fused_ok(h, a)):
             t = lora_dropout_matmul(h.reshape(-1, h.shape[-1]).contiguous(),
@@ -158,7 +440,19 @@ class LoRADense(nn.Module):
             t = t.reshape(h.shape[:-1] + (a.shape[-1],))
         else:
             t = dropout(h, self.dropout, deterministic, rng) @ a
-        return y + self.scale * (t @ self.lora_b.to(self.dtype))
+        if self.sides == 2:
+            rows = torch.arange(h.shape[0], device=h.device) >= split
+            cols = torch.arange(2 * r, device=h.device) >= r
+            keep = (rows[:, None] == cols[None, :]).reshape(
+                (h.shape[0],) + (1,) * (h.dim() - 2) + (2 * r,))
+            t = torch.where(keep, t, torch.zeros((), dtype=t.dtype,
+                                                 device=t.device))
+        return self.scale * (t @ b)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                rng: Optional[torch.Generator] = None,
+                split: int = 0) -> torch.Tensor:
+        return self.base(x) + self.delta(x, deterministic, rng, split)
 
 
 class LayerNorm(nn.Module):
@@ -239,14 +533,21 @@ class Attention(nn.Module):
     the per-projection path takes the split kernel (`flash_attention`,
     forward and backward) where `_flash_ok` admits the shape, and plain
     attention elsewhere.  Seeds are drawn in the order: query's LoRA
-    dropout, value's, then the attention weights'."""
+    dropout, value's, then the attention weights'.
+
+    `lora_sides` = 2: side-stacked adapters (LoRADense); the forward's
+    `lora_split` rows of the [N, L, D] input take side 0's.  `remat`, a
+    layer's RematState under a quantising policy: the first forward saves
+    q/k/v (qkv on the packed path) quantised and goes on with their
+    dequantised values; the recompute restores them without the
+    projections' products."""
 
     def __init__(self, d: int, num_heads: int, use_flash: bool = False,
                  dtype: torch.dtype = torch.float32, lora_rank: int = 0,
                  lora_alpha: float = 32.0,
                  lora_targets: tuple = ("query", "value"),
                  dropout: float = 0.0, lora_dropout: float = 0.1,
-                 lora_fused_dropout: bool = True):
+                 lora_fused_dropout: bool = True, lora_sides: int = 1):
         super().__init__()
         if d % num_heads:
             raise ValueError(f"d={d} is not a multiple of heads={num_heads}")
@@ -259,7 +560,8 @@ class Attention(nn.Module):
         def proj(name):
             if lora_rank > 0 and name in lora_targets:
                 return LoRADense(d, d, lora_rank, lora_alpha, dtype,
-                                 lora_dropout, lora_fused_dropout)
+                                 lora_dropout, lora_fused_dropout,
+                                 lora_sides)
             return Dense(d, d, dtype)
 
         self.query, self.key, self.value = (proj(n) for n in
@@ -269,8 +571,11 @@ class Attention(nn.Module):
     def forward(self, query, key, value,
                 pad_mask: Optional[torch.Tensor] = None, *,
                 deterministic: bool = True,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                rng: Optional[torch.Generator] = None,
+                lora_split: int = 0,
+                remat: Optional[RematState] = None) -> torch.Tensor:
         b, l, d = query.shape
+        restoring = remat is not None and remat.restoring
         h = self.num_heads
         head_dim = d // h
         rate = self.dropout if not deterministic else 0.0
@@ -282,20 +587,36 @@ class Attention(nn.Module):
                                    self.value.weight.t(), h, hb)
             b_g = pack_qkv_weights(self.query.bias, self.key.bias,
                                    self.value.bias, h, hb)
-            qkv = F.linear(query.to(self.dtype), w_g.t().to(self.dtype),
-                           b_g.to(self.dtype))
+            xw = (query.to(self.dtype), w_g.t().to(self.dtype),
+                  b_g.to(self.dtype))
+            if restoring and remat.bits("qkv"):
+                qkv = remat.restore("qkv", *xw)
+            else:
+                qkv = F.linear(*xw)
+                if remat is not None:
+                    qkv = remat.save("qkv", qkv)
             seed = draw_seed(rng) if rate > 0.0 else None
             return self.out(flash_attention_packed(qkv, pad_mask, seed, h,
                                                    hb, rate))
 
-        def project(mod, x):
-            if isinstance(mod, LoRADense):
-                return mod(x, deterministic, rng)
+        def project(mod, x, name):
+            lora = isinstance(mod, LoRADense)
+            if restoring and remat.bits(name):
+                base = mod.base if lora else mod
+                delta = (mod.delta(x, deterministic, rng, lora_split)
+                         if lora else None)
+                return remat.restore(name, x.to(self.dtype),
+                                     base.weight.to(self.dtype),
+                                     base.bias.to(self.dtype), delta)
+            if lora:
+                return mod(x, deterministic, rng, lora_split)
             return mod(x)
 
-        q = project(self.query, query)
-        k = project(self.key, key)
-        v = project(self.value, value)
+        q = project(self.query, query, "q")
+        k = project(self.key, key, "k")
+        v = project(self.value, value, "v")
+        if remat is not None and not restoring:
+            q, k, v = (remat.save(n, t) for n, t in zip("qkv", (q, k, v)))
         seed = draw_seed(rng) if rate > 0.0 else None
         if self.use_flash and _flash_ok(q, head_dim, rate):
             out = flash_attention(q, k, v, pad_mask, seed, h, rate)
@@ -322,9 +643,19 @@ class Mlp(nn.Module):
         self.out_dropout = out_dropout
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = dropout(self.activation(self.fc1(x)), self.dropout,
-                    deterministic, rng)
+                rng: Optional[torch.Generator] = None,
+                remat: Optional[RematState] = None) -> torch.Tensor:
+        """`remat`: as Attention's, for the fc1 preactivation."""
+        fc1 = self.fc1
+        if remat is not None and remat.restoring and remat.bits("fc1"):
+            x = remat.restore("fc1", x.to(fc1.dtype),
+                              fc1.weight.to(fc1.dtype),
+                              fc1.bias.to(fc1.dtype))
+        else:
+            x = fc1(x)
+            if remat is not None:
+                x = remat.save("fc1", x)
+        x = dropout(self.activation(x), self.dropout, deterministic, rng)
         return dropout(self.fc2(x), self.out_dropout, deterministic, rng)
 
 

@@ -6,12 +6,14 @@ reference order u_doc, i_doc, img_vec, ui_vec, xui, xti (train.py:242-251)
 into the dense-gated two-task head.  HoME (train_HoME.py:344-357) drops the
 experts' final norms and heads, projects the ViT's CLS vector for the
 contrastive losses, wraps every expert vector in BatchNorm + SiLU +
-dropout and scores them with the HoME head.  The shared-base text layout
-and top-k gating are later slices and raise here.
+dropout and scores them with the HoME head.  `shared_text_base` runs both
+text experts as one DualTextExpert pass (`text_experts`); `gate_type`
+"topk" puts the top-k gates in the head; `remat` recomputes each encoder
+layer in the backward under `remat_policy`.
 
 `forward(batch, deterministic=False, rng=gen)` is the training forward:
 every dropout site draws its seed from `gen` in call order (user expert,
-item expert, image expert, cross expert, the two fuse experts, the HoME
+item expert (or the shared text pass), image expert, cross expert, the two fuse experts, the HoME
 wrappers, the head).  The HoME wrappers' BatchNorms use the batch's
 statistics, and move their running ones, unless `bn_use_running_average`,
 which defaults to `deterministic`.
@@ -29,7 +31,7 @@ from .heads import TwoTaskMMoE
 from .home import HomeExpertWrapper, HomeMMoEHead
 from .image_expert import (ImageExpertWithProjection, ItemImageExpert,
                            normalize_patches)
-from .text_expert import TextExpert
+from .text_expert import DualTextExpert, TextExpert
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -53,12 +55,8 @@ class MMoERecModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        for name, ported in (("variant", cfg.variant in ("baseline", "home")),
-                             ("shared_text_base", not cfg.shared_text_base),
-                             ("gate_type", cfg.gate_type == "dense")):
-            if not ported:
-                raise NotImplementedError(
-                    f"model.{name}={getattr(cfg, name)!r} is not yet ported")
+        if cfg.variant not in ("baseline", "home"):
+            raise ValueError(f"unknown model.variant {cfg.variant!r}")
         d = cfg.text.hidden_size
         if cfg.image.hidden_size != d:
             raise ValueError("the experts stack: text and image hidden sizes "
@@ -68,16 +66,22 @@ class MMoERecModel(nn.Module):
         dtype = DTYPES[cfg.compute_dtype]
         flash = cfg.use_flash_attention
         drop = cfg.dropout
-        self.user_expert = TextExpert(cfg.text, dtype, flash, drop, cfg.remat,
-                                      final_norm=not home)
-        self.item_expert = TextExpert(cfg.text, dtype, flash, drop, cfg.remat,
-                                      final_norm=not home)
+        remat = dict(remat=cfg.remat, remat_policy=cfg.remat_policy)
+        self.shared = cfg.shared_text_base
+        if self.shared:
+            self.text_experts = DualTextExpert(cfg.text, dtype, flash, drop,
+                                               final_norm=not home, **remat)
+        else:
+            self.user_expert = TextExpert(cfg.text, dtype, flash, drop,
+                                          final_norm=not home, **remat)
+            self.item_expert = TextExpert(cfg.text, dtype, flash, drop,
+                                          final_norm=not home, **remat)
         if home:
             self.img_expert = ImageExpertWithProjection(cfg.image, dtype,
-                                                        flash, cfg.remat)
+                                                        flash, **remat)
         else:
             self.img_expert = ItemImageExpert(cfg.image, dtype, flash, drop,
-                                              cfg.remat)
+                                              **remat)
         self.cross_ui = RobustTextCrossExpert(
             d, cfg.cross_layers, cfg.cross_heads, dtype, flash, drop,
             final_mlp=not home, pool_nan_guard=home)
@@ -93,10 +97,11 @@ class MMoERecModel(nn.Module):
                 d, cfg.n_experts, cfg.home_shared_experts,
                 cfg.home_task_experts, cfg.home_expert_hidden,
                 cfg.home_expert_dropout, cfg.home_tower_hidden,
-                cfg.home_tower_dropout, dtype)
+                cfg.home_tower_dropout, dtype, cfg.gate_type, cfg.gate_topk)
         else:
             self.head = TwoTaskMMoE(d, cfg.n_experts, cfg.tower_hidden, dtype,
-                                    cfg.tower_dropout)
+                                    cfg.tower_dropout, cfg.gate_type,
+                                    cfg.gate_topk)
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 deterministic: bool = True,
@@ -104,12 +109,20 @@ class MMoERecModel(nn.Module):
                 bn_use_running_average: Optional[bool] = None
                 ) -> ModelOutputs:
         kw = dict(deterministic=deterministic, rng=rng)
-        u_sent, u_mask, u_doc = self.user_expert(
-            batch["user_tokens"], batch["user_sent_chunk"],
-            batch["user_sent_tok"], **kw)
-        i_sent, i_mask, i_doc = self.item_expert(
-            batch["item_tokens"], batch["item_sent_chunk"],
-            batch["item_sent_tok"], **kw)
+        if self.shared:
+            (u_sent, u_mask, u_doc), (i_sent, i_mask, i_doc) = \
+                self.text_experts(batch["user_tokens"], batch["item_tokens"],
+                                  batch["user_sent_chunk"],
+                                  batch["user_sent_tok"],
+                                  batch["item_sent_chunk"],
+                                  batch["item_sent_tok"], **kw)
+        else:
+            u_sent, u_mask, u_doc = self.user_expert(
+                batch["user_tokens"], batch["user_sent_chunk"],
+                batch["user_sent_tok"], **kw)
+            i_sent, i_mask, i_doc = self.item_expert(
+                batch["item_tokens"], batch["item_sent_chunk"],
+                batch["item_sent_tok"], **kw)
         patches = normalize_patches(batch["patches"], batch["has_image"])
         aux = {}
         if self.home:

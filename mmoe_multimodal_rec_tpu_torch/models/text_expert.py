@@ -1,9 +1,10 @@
 """TextExpert: BGE encoder over packed chunks + sentence gather + doc pooling.
 
-Port of mmoe_multimodal_rec_tpu/models/text_expert.py (TextExpert, baseline
-and HoME; the shared-base DualTextExpert is a later slice).  The packer's static routing
-tensors `sent_chunk`/`sent_tok` [B, S] (global chunk row / token position,
--1 = padded sentence) turn the regroup into one index_select.
+Port of mmoe_multimodal_rec_tpu/models/text_expert.py: TextExpert
+(baseline and HoME) and the shared-base DualTextExpert
+(model.shared_text_base).  The packer's static routing tensors
+`sent_chunk`/`sent_tok` [B, S] (global chunk row / token position, -1 =
+padded sentence) turn the regroup into one index_select.
 """
 from __future__ import annotations
 
@@ -48,9 +49,9 @@ class TextExpert(nn.Module):
     def __init__(self, cfg: TextEncoderConfig,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  dropout: float = 0.1, remat: bool = False,
-                 final_norm: bool = True):
+                 final_norm: bool = True, remat_policy: str = "dots"):
         super().__init__()
-        self.encoder = BertEncoder(cfg, dtype, use_flash, remat)
+        self.encoder = BertEncoder(cfg, dtype, use_flash, remat, remat_policy)
         self.norm = LayerNorm(cfg.hidden_size, dtype=dtype) if final_norm \
             else None
         self.dtype = dtype
@@ -69,3 +70,54 @@ class TextExpert(nn.Module):
             doc_vecs = dropout(self.norm(doc_vecs).to(self.dtype),
                                self.dropout, deterministic, rng)
         return sent_vecs, sent_mask, doc_vecs
+
+
+class DualTextExpert(nn.Module):
+    """Both text experts as ONE encoder pass over the concatenated
+    [user; item] chunk batch: one frozen base, per-side LoRA adapters
+    (LoRADense sides = 2: lora_a [2, D, r], lora_b [2, r, D], 0 = user,
+    1 = item) and, baseline only, per-side final LayerNorms `norm_user` /
+    `norm_item`.  Equal to two TextExperts whose bases are equal, which
+    the reference workflow keeps (both towers load one BGE, and the base
+    is in no optimizer group); utils/shared_base.py converts between the
+    layouts.  Seeds are drawn in call order: the encoder's sites, then
+    the user side's two output dropouts, then the item side's."""
+
+    def __init__(self, cfg: TextEncoderConfig,
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
+                 dropout: float = 0.1, remat: bool = False,
+                 final_norm: bool = True, remat_policy: str = "dots"):
+        super().__init__()
+        self.encoder = BertEncoder(cfg, dtype, use_flash, remat, remat_policy,
+                                   lora_sides=2)
+        if final_norm:
+            self.norm_user = LayerNorm(cfg.hidden_size, dtype=dtype)
+            self.norm_item = LayerNorm(cfg.hidden_size, dtype=dtype)
+        self.final_norm = final_norm
+        self.dtype = dtype
+        self.dropout = dropout
+
+    def forward(self, user_tokens, item_tokens, user_sent_chunk,
+                user_sent_tok, item_sent_chunk, item_sent_tok, *,
+                deterministic: bool = True,
+                rng: Optional[torch.Generator] = None):
+        """Returns ((u_sent, u_mask, u_doc), (i_sent, i_mask, i_doc)), each
+        what TextExpert returns for its side."""
+        nu = user_tokens.shape[0]
+        h = self.encoder(torch.cat([user_tokens, item_tokens], dim=0),
+                         deterministic=deterministic, rng=rng, lora_split=nu)
+        outs = []
+        for side, hs, sc, st in (("user", h[:nu], user_sent_chunk,
+                                  user_sent_tok),
+                                 ("item", h[nu:], item_sent_chunk,
+                                  item_sent_tok)):
+            sent_vecs, sent_mask, doc_vecs = gather_sentences(hs, sc, st)
+            doc_vecs = doc_vecs.to(self.dtype)
+            if self.final_norm:
+                norm = getattr(self, f"norm_{side}")
+                sent_vecs = dropout(norm(sent_vecs).to(self.dtype),
+                                    self.dropout, deterministic, rng)
+                doc_vecs = dropout(norm(doc_vecs).to(self.dtype),
+                                   self.dropout, deterministic, rng)
+            outs.append((sent_vecs, sent_mask, doc_vecs))
+        return tuple(outs)

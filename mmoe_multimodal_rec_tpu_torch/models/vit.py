@@ -7,7 +7,9 @@ directly.  Every layer's self-attention (L = 197, no mask) takes the
 packed-qkv kernel when use_flash is set.  Dropout sits where the JAX
 module has it (hidden_dropout after the position embedding, on the
 attention and MLP outputs and inside the MLP; attention_dropout on the
-weights); the ViT-base config sets both rates to 0.
+weights); the ViT-base config sets both rates to 0.  `remat` recomputes
+each layer that needs a gradient under `remat_policy` (HoME fine-tunes
+the last two); a frozen layer whose input needs none runs plainly.
 """
 from __future__ import annotations
 
@@ -18,12 +20,12 @@ from torch import nn
 
 from ..config import ImageEncoderConfig
 from .layers import (Attention, Dense, LayerNorm, Mlp, _trunc_normal_,
-                     dropout, gelu_exact)
+                     dropout, gelu_exact, remat_layer, resolve_remat_policy)
 
 
 class ViTLayer(nn.Module):
     def __init__(self, cfg: ImageEncoderConfig, dtype: torch.dtype,
-                 use_flash: bool = False):
+                 use_flash: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
         d = cfg.hidden_size
         self.norm1 = LayerNorm(d, cfg.layer_norm_eps, dtype)
@@ -34,16 +36,28 @@ class ViTLayer(nn.Module):
                        cfg.hidden_dropout, cfg.hidden_dropout)
         self.dtype = dtype
         self.hidden_dropout = cfg.hidden_dropout
+        self.remat = (None if remat_policy is None
+                      else resolve_remat_policy(remat_policy))
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.norm1(x).to(self.dtype)
-        h = self.attention(h, h, h, None, deterministic=deterministic,
-                           rng=rng)
-        h = dropout(h, self.hidden_dropout, deterministic, rng)
-        x = x + h.to(x.dtype)
-        h = self.mlp(self.norm2(x).to(self.dtype), deterministic, rng)
-        return x + h.to(x.dtype)
+        def attend(x, rng, remat):
+            """x -> attn_res, the post-attention residual."""
+            h = self.norm1(x).to(self.dtype)
+            h = self.attention(h, h, h, None, deterministic=deterministic,
+                               rng=rng, remat=remat)
+            h = dropout(h, self.hidden_dropout, deterministic, rng)
+            return x + h.to(x.dtype)
+
+        def feed(a, rng, remat):
+            h = self.mlp(self.norm2(a).to(self.dtype), deterministic, rng,
+                         remat)
+            return a + h.to(a.dtype)
+
+        if self.remat is None:
+            return feed(attend(x, rng, None), rng, None)
+        return remat_layer(attend, feed, self.remat, self.parameters(), x,
+                           deterministic, rng)
 
 
 class ViTEncoder(nn.Module):
@@ -52,11 +66,8 @@ class ViTEncoder(nn.Module):
 
     def __init__(self, cfg: ImageEncoderConfig,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: str = "dots"):
         super().__init__()
-        if remat:
-            raise NotImplementedError("model.remat (per-layer recompute) is "
-                                      "not yet ported")
         d = cfg.hidden_size
         self.cfg = cfg
         self.dtype = dtype
@@ -64,7 +75,8 @@ class ViTEncoder(nn.Module):
         self.cls_token = nn.Parameter(torch.empty(1, 1, d))
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches + 1, d))
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", ViTLayer(cfg, dtype, use_flash))
+            self.add_module(f"layer_{i}", ViTLayer(
+                cfg, dtype, use_flash, remat_policy if remat else None))
         self.final_norm = LayerNorm(d, cfg.layer_norm_eps, dtype)
 
     def init_params(self, generator):

@@ -5,7 +5,11 @@ The port's module names follow the JAX tree, so a flat key maps by rule:
 `user_expert.encoder.layer_0.attention.query.weight` [out, in]; `scale` and
 `embedding` become `weight`; every other leaf keeps its name and layout.
 The JAX `batch_stats` collection (HoME's `<wrapper>/norm/{mean,var}`) maps
-the same way onto the BatchNorm buffers of the same names.
+the same way onto the BatchNorm buffers of the same names.  A shared-base
+tree (`text_experts/...`, side-stacked [2, ...] LoRA factors) maps as it
+is onto a model built with model.shared_text_base; a scan-layers tree
+(`encoder/layers/layer/...` with a leading [num_layers] axis) is unstacked
+first, since the port keeps its layers unrolled.
 """
 from __future__ import annotations
 
@@ -16,13 +20,18 @@ import torch
 from torch import nn
 
 from .lora import merge_lora as _merge_lora
+from .scan_convert import is_scan_layout, unstack_layers
 
 
 def params_from_jax(flat: Mapping[str, np.ndarray], model_cfg,
                     merge_lora: bool = True) -> Dict[str, torch.Tensor]:
     """Flat '/'-joined JAX params (numpy) -> a state_dict for the port.
-    With merge_lora and LoRA factors present, they are folded in first
-    (utils/lora.merge_lora at model_cfg.text.lora_alpha)."""
+    A scan-layers tree is unstacked first.  With merge_lora and LoRA
+    factors present, they are folded in next (utils/lora.merge_lora at
+    model_cfg.text.lora_alpha, which expands a shared-base tree to two
+    towers)."""
+    if is_scan_layout(flat):
+        flat = unstack_layers(flat)
     if merge_lora and any(k.endswith("/lora_a") for k in flat):
         flat = _merge_lora(flat, model_cfg.text.lora_alpha)
     state = {}

@@ -16,8 +16,10 @@ The converters are the PyTorch port's own copy of
 mmoe_multimodal_rec_tpu/utils/hf_convert.py (numpy only).  The port's
 modules are named after the JAX tree, so `load_reference_checkpoint`
 reaches the model through utils/convert.params_from_jax, the one place
-where names map.  Not ported: the scan-layers and shared-base layouts,
-which the port's model does not have yet (its config raises for them).
+where names map.  With model.shared_text_base the two towers merge into
+the shared-base `text_experts` tree (utils/shared_base.py), as the JAX
+converter does; with text.scan_layers the tree stays unrolled, the
+layout of the port's layers.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 
 from ..config import ImageEncoderConfig, TextEncoderConfig
 from .convert import params_from_jax
+from .shared_base import two_tower_to_shared
 
 Params = Dict[str, object]
 
@@ -373,10 +376,12 @@ def convert_reference_checkpoint(ckpt: Mapping, model_cfg,
         params["img_expert"] = convert_image_expert(ckpt["img"],
                                                     model_cfg.image)
         params["head"] = convert_two_task_head(ckpt["head"])
-    if getattr(model_cfg.text, "scan_layers", False) or \
-            getattr(model_cfg, "shared_text_base", False):
-        raise NotImplementedError("the scan-layers and shared-base layouts "
-                                  "are not yet ported")
+    # text.scan_layers: the port keeps its layers unrolled, so the tree
+    # stays as it is (the JAX converter stacks it, utils/scan_convert.py)
+    if getattr(model_cfg, "shared_text_base", False):
+        # one text_experts subtree (models/text_expert.DualTextExpert);
+        # exact, and raises if the two towers' frozen bases diverge
+        params = _unflatten(two_tower_to_shared(_flatten(params)))
     return params, (stats or None)
 
 
@@ -393,6 +398,17 @@ def _flatten(tree: Params, prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             out[key] = v
     return out
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> Params:
+    tree: Params = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
 
 
 def _load_named(own: Mapping[str, torch.Tensor],

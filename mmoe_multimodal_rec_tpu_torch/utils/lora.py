@@ -5,7 +5,11 @@ the JAX `params` tree flattened with '/'-joined keys, numpy arrays in the
 JAX layout (kernels [in, out], lora_a [in, r], lora_b [r, out]).  At
 inference the adapter is a constant, so W' = W + (alpha/r) A B is exact, and
 with the LoRA branch gone the text attention layers take the packed-qkv
-kernel (models/layers.Attention needs lora_rank == 0).
+kernel (models/layers.Attention needs lora_rank == 0).  A shared-base
+mapping (model.shared_text_base: one base, side-stacked LoRA factors) is
+expanded to two towers first (utils/shared_base.shared_to_two_tower,
+exact): one kernel cannot hold two merged deltas, and the result then has
+the layout `merged_model_config` describes.
 """
 from __future__ import annotations
 
@@ -14,15 +18,16 @@ from typing import Mapping
 
 import numpy as np
 
+from .shared_base import is_shared_layout, shared_to_two_tower
+
 
 def merge_lora(flat: Mapping[str, np.ndarray], alpha: float
                ) -> dict:
     """New flat mapping with every `<p>/{base/{kernel,bias}, lora_a, lora_b}`
     collapsed to `<p>/{kernel, bias}`, kernel = base + (alpha/r) A B.  The
     merge runs in fp32 and casts back to the base kernel's dtype."""
-    if any(k.startswith("text_experts/") for k in flat):
-        raise NotImplementedError("the shared-base text layout "
-                                  "(model.shared_text_base) is not yet ported")
+    if is_shared_layout(flat):
+        flat = shared_to_two_tower(flat)
     out = {}
     n_merged = 0
     for key, v in flat.items():
@@ -52,7 +57,10 @@ def merge_lora_state(state: Mapping[str, "torch.Tensor"], alpha: float
     """New state_dict with every LoRADense `<p>.{base.weight, base.bias,
     lora_a, lora_b}` collapsed to the Dense `<p>.{weight, bias}`, weight =
     base + (alpha/r) (A B)^T, merged in fp32 and cast back to the base
-    weight's dtype."""
+    weight's dtype.  A shared-base state_dict is expanded to two towers
+    first."""
+    if is_shared_layout(state, sep="."):
+        state = shared_to_two_tower(state, sep=".")
     out = {}
     n_merged = 0
     for key, v in state.items():

@@ -11,6 +11,10 @@ import torch
 
 from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as tfa
 
+# each xdist worker runs beside five others on the box: two threads
+# keep torch from taking every core from the JAX tests
+torch.set_num_threads(2)
+
 
 def _need_card():
     # decided inside the test, never at import: xdist workers must collect
@@ -373,10 +377,12 @@ def test_lora_dropout_mask_is_the_hash_dropout_stream(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,d,r", [(49152, 768, 8), (4097, 200, 20)])
+@pytest.mark.parametrize("m,d,r", [(49152, 768, 8), (4097, 200, 20),
+                                   (98304, 768, 16)])
 def test_lora_dropout_dh_is_bitwise_deterministic(m, d, r):
     """Two calls of #6 on the same inputs give the same bits (bf16), at the
-    main path's shape and at a ragged one that takes the kernel's k loop:
+    main path's shape, the shared text base's (twice the rows, the folded
+    rank 16) and at a ragged one that takes the kernel's k loop:
     each output is one tile's sums of one warp, with no atomics."""
     _need_card()
     from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld

@@ -21,6 +21,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from mmoe_multimodal_rec_tpu import cli as jcli
 from mmoe_multimodal_rec_tpu.config import tiny_config as j_tiny_config
@@ -46,6 +47,10 @@ from mmoe_multimodal_rec_tpu_torch.data.packer import TextPacker
 from mmoe_multimodal_rec_tpu_torch.data.tar_io import iter_shard
 from mmoe_multimodal_rec_tpu_torch.data.wordpiece import (HashTokenizer,
                                                           WordPieceTokenizer)
+
+# each xdist worker runs beside five others on the box: two threads
+# keep torch from taking every core from the JAX tests
+torch.set_num_threads(2)
 
 # review sentences with what the normalizer rewrites: curly quotes, dashes,
 # an ellipsis, HTML entities, control characters, an emoji, accents

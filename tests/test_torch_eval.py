@@ -53,6 +53,10 @@ from test_checkpoint_convert import (_bert_sd, _cross_sd, _flat, _fuse_sd,
                                      _head_sd, _ln, _vit_sd)
 from util import tiny_cli_flags, tiny_config, tiny_tokenizer
 
+# each xdist worker runs beside five others on the box: two threads
+# keep torch from taking every core from the JAX tests
+torch.set_num_threads(2)
+
 AUC_TOL = 1e-12
 PROB_ATOL = 1e-5
 STATS_RTOL = 1e-5

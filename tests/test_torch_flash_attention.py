@@ -17,6 +17,10 @@ import torch
 from mmoe_multimodal_rec_tpu_torch.ops import cuda_lib
 from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as tfa
 
+# each xdist worker runs beside five others on the box: two threads
+# keep torch from taking every core from the JAX tests
+torch.set_num_threads(2)
+
 # the JAX ops package re-exports the function under the module's name
 jfa = importlib.import_module("mmoe_multimodal_rec_tpu.ops.flash_attention")
 

@@ -21,6 +21,10 @@ from mmoe_multimodal_rec_tpu.ops import lora_dropout as jld
 from mmoe_multimodal_rec_tpu_torch.models import layers as tlayers
 from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld
 
+# each xdist worker runs beside five others on the box: two threads
+# keep torch from taking every core from the JAX tests
+torch.set_num_threads(2)
+
 M, D, R = 512, 128, 4
 FP32_TOL = {"t": 1e-5, "dh": 1e-5, "da": 1e-4}
 

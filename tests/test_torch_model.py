@@ -40,6 +40,10 @@ from mmoe_multimodal_rec_tpu_torch.utils.convert import (load_jax_params,
                                                           params_from_jax)
 from util import packed_batch, tiny_config
 
+# each xdist worker runs beside five others on the box: two threads
+# keep torch from taking every core from the JAX tests
+torch.set_num_threads(2)
+
 PART_ATOL = 2e-5
 MODEL_ATOL = 1e-4
 MODEL_KEYS = ("user_tokens", "user_sent_chunk", "user_sent_tok",

@@ -8,6 +8,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from mmoe_multimodal_rec_tpu.config import PackerConfig as JPackerConfig
 from mmoe_multimodal_rec_tpu.data.native_tokenizer import (
@@ -24,6 +25,10 @@ from mmoe_multimodal_rec_tpu_torch.data.sentence import split_sentences
 from mmoe_multimodal_rec_tpu_torch.data.synthetic import random_text
 from mmoe_multimodal_rec_tpu_torch.data.wordpiece import (HashTokenizer,
                                                           WordPieceTokenizer)
+
+# each xdist worker runs beside five others on the box: two threads
+# keep torch from taking every core from the JAX tests
+torch.set_num_threads(2)
 
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(native.__file__)))
 TEXTS = [

@@ -19,6 +19,10 @@ import torch
 from mmoe_multimodal_rec_tpu_torch import cli
 from util import tiny_cli_flags
 
+# each xdist worker runs beside five others on the box: two threads
+# keep torch from taking every core from the JAX tests
+torch.set_num_threads(2)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT_PKG = REPO / "mmoe_multimodal_rec_tpu_torch"
 _FORBIDDEN = re.compile(
@@ -40,11 +44,15 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
 for n in names:
     importlib.import_module(n)
+exported = {}
+for sub in ("data", "models", "train", "eval", "ops", "utils"):
+    mod = importlib.import_module(pkg.__name__ + "." + sub)
+    exported[sub] = sorted(n for n in mod.__all__ if getattr(mod, n))
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "mmoe_multimodal_rec_tpu"))
-print(json.dumps({"modules": names, "bad": bad}))
+print(json.dumps({"modules": names, "bad": bad, "exported": exported}))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=120)
@@ -61,8 +69,22 @@ print(json.dumps({"modules": names, "bad": bad}))
                 "data.loader", "data.pretokenize", "data.textbuild",
                 "data.features", "data.minibeam", "data.beam_pipeline",
                 "data.ingest", "data.patches", "data.native_tokenizer",
-                "native"):
+                "native", "models.text_expert", "utils.shared_base",
+                "utils.scan_convert", "utils.lora"):
         assert f"mmoe_multimodal_rec_tpu_torch.{mod}" in res["modules"]
+    # each subpackage re-exports the JAX one's public names, but for the
+    # JAX package's pytree plumbing, its plotting (not ported yet) and the
+    # split-attention function, whose name is its module's
+    import importlib
+    not_exported = {"TrainState", "init_model_variables", "merge_params",
+                    "param_labels", "plot_epoch_losses", "plot_loss_curves",
+                    "plot_roc", "flash_attention"}
+    for sub, names in res["exported"].items():
+        jax_all = importlib.import_module(
+            f"mmoe_multimodal_rec_tpu.{sub}").__all__
+        assert set(jax_all) - not_exported <= set(names), sub
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention
+    assert callable(flash_attention.flash_attention)
     # imports inside functions too: no source line of the port names them
     for path in sorted(PORT_PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         assert not _FORBIDDEN.search(path.read_text()), path

@@ -32,6 +32,10 @@ from mmoe_multimodal_rec_tpu_torch.eval.server import PredictionServer
 from mmoe_multimodal_rec_tpu_torch.models import layers as tlayers
 from util import tiny_cli_flags, tiny_config, tiny_tokenizer
 
+# each xdist worker runs beside five others on the box: two threads
+# keep torch from taking every core from the JAX tests
+torch.set_num_threads(2)
+
 BATCH = 4
 PROB_ATOL = 1e-5   # fp32 end to end; the logits agree to ~1e-7
 USERS = ["Great bike, highly recommend. The frame is solid!",

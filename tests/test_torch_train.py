@@ -40,6 +40,10 @@ from util import stacked_batch, tiny_cli_flags, tiny_config
 
 import chip_smoke
 
+# each xdist worker runs beside five others on the box: two threads
+# keep torch from taking every core from the JAX tests
+torch.set_num_threads(2)
+
 
 def _port_cfg(cfg):
     return TConfig.from_dict(cfg.to_dict())

@@ -100,7 +100,24 @@ exits non-zero without the final result line:
      the valid shards (n = the split's samples); `ckpt-info` (latest step
      2, the trainer's own counts); and one 64-pair batch of these texts
      packed on the host by the pure-Python and the native WordPiece and by
-     pack_encoded, the same arrays, with their times.
+     pack_encoded, the same arrays, with their times;
+ 14. shard_kernel_check (after keep_mask_kernel): the kernels as a rank of
+     a mesh calls them (parallel/mesh.py).  #2 and #3 on text heads 6-11 of
+     12 and #8 on cross heads 4-7 of 8 (h_total, h0) equal those heads of
+     the full call bit for bit and their plain versions within the
+     existing limits, and the keep mask read back through #2/#3 on the
+     shard is those heads' plain mask; #2, #3, #4, #6 and #8 on the second
+     half of the rows with the seed folded by the rows' offset equal the
+     second half of the full call bit for bit (#5: the full call on dt
+     zeroed over the first half, within LORA_TOL); each shard call's time
+     beside the full call's;
+ 15. mesh_check (after pipeline): `train --multihost` under
+     torch.distributed.run --nproc_per_node=1 on the pipeline's shards (2
+     text and 2 ViT layers) while, in a 1-rank NCCL group, the default
+     Trainer on its 1 x 1 mesh takes two steps equal bit for bit to the
+     plain Trainer's (metrics, parameters, AdamW state, launches); then a
+     profiled mesh step beside the train phase's default step (device time
+     by kind, the NCCL all-reduce counted).
 Then one JSON line of kernel records, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Needs one card; exits non-zero
 without one.
@@ -121,6 +138,12 @@ through its own chip_smoke.py.
 does the same for the fused LoRA dropout kernels: each checkout builds
 csrc/lora_dropout.cu and runs its own phase_lora_kernels (#4-#6 at the main
 path's shape, per call and per step's calls), in turns.
+
+    python3 chip_smoke.py --bwd-variants 'label=[checkout];...'
+
+does the same for the attention backward: each checkout builds
+csrc/flash_attention_{fwd,bwd}.cu and times #3 at the text shape (rates
+0.1 and 0, held to the plain version), in turns.
 
     python3 chip_smoke.py --keep-mask-variants 'label=[checkout];...'
 
@@ -577,20 +600,22 @@ def split_case(name, b, l, heads, dh, rate, gen, timed=True):
     return rec, fns
 
 
-def mask_read_back(b, l, heads, dh, rate, seed):
+def mask_read_back(b, l, heads, dh, rate, seed, h_total=None, h0=0):
     """The keep mask read back through both training kernels at the text
     L and dh: with q = k = 0 every key weighs 1/L.  Forward, v one-hot over
     a chunk of dh keys: out[b, q, h*dh + j] = keep[b, h, q, c*dh + j] /
     (L (1 - r)).  Backward, dO one-hot over a chunk of dh query rows:
     dv[b, key, h*dh + j] = keep[b, h, c*dh + j, key] / (L (1 - r)).  Both
     must equal dropout_keep_mask_reference (the plain version, never the
-    kernel #8), chunk by chunk."""
+    kernel #8), chunk by chunk; a head shard (heads [h0, h0 + heads) of
+    h_total) reads back its heads of the whole mask."""
     import torch
     from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
     d = heads * dh
     z = torch.zeros(b, l, d, device="cuda", dtype=torch.bfloat16)
+    shard = dict(h_total=h_total, h0=h0)
     want = fa.dropout_keep_mask_reference(seed, b, heads, l, l, rate,
-                                          device="cuda")
+                                          device="cuda", **shard)
     scale = l * (1.0 - rate)
     for c in range(l // dh):
         onehot = torch.zeros(b, l, heads, dh, device="cuda")
@@ -598,7 +623,7 @@ def mask_read_back(b, l, heads, dh, rate, seed):
             :, None, :]
         onehot = onehot.reshape(b, l, d).bfloat16()
         vv = onehot.clone().requires_grad_()
-        out = fa.flash_attention(z, z, vv, None, seed, heads, rate)
+        out = fa.flash_attention(z, z, vv, None, seed, heads, rate, **shard)
         got = out.float().reshape(b, l, heads, dh).permute(0, 2, 1, 3)
         check(torch.equal(got * scale > 0.5,
                           want[..., c * dh:(c + 1) * dh]),
@@ -886,6 +911,8 @@ def kind_of(kernel_name: str) -> str:
     """The port's kernels by wrapper (the attention kernels' first template
     flag tells split from packed), then matrix products, then the rest."""
     low = kernel_name.lower()
+    if "nccl" in low:
+        return "nccl"
     for kernel, kind in (("keep_mask_kernel", "dropout_keep_mask"),
                          ("lora_fwd", "lora_dropout_fwd"),
                          ("lora_da", "lora_dropout_da"),
@@ -2507,8 +2534,8 @@ def trainer_steps():
     seen = {"trainer": None, "metrics": []}
     real = Trainer.run_step
 
-    def spy(self, batch):
-        m = real(self, batch)
+    def spy(self, batch, **kw):
+        m = real(self, batch, **kw)
         seen["trainer"] = self
         seen["metrics"].append(m)
         return m
@@ -2762,7 +2789,337 @@ def phase_pipeline():
                                         "resume")},
         host_pack_ms=pack_ms, host_pack_batch=cfg.train.batch_size,
         host_pack_fill=fill, nvidia_smi=nvidia_smi())
-    return pack_ms
+    return {"train_pattern": shards["train"], "flags": flags[:4],
+            "root": root}
+
+# ---------------------------------------------------------------------------
+# phases 14 and 15: the mesh (parallel/mesh.py) on one card
+# ---------------------------------------------------------------------------
+
+def seed_folding_past(offset: int) -> int:
+    """A seed whose fold by `offset` is 2^31 + 12345: the row shard then
+    takes a uint32 seed above the int32 range."""
+    from mmoe_multimodal_rec_tpu_torch.ops.lora_dropout import fold_seed
+    return (2 ** 31 + 12345 - fold_seed(0, offset)) % 2 ** 32
+
+
+def _pair(name, shard, full):
+    """A shard call's time beside the full call's (CUDA events, warm)."""
+    rec = {"ms": cuda_ms(shard), "full_ms": cuda_ms(full)}
+    log("shard_time", kernel=name, **rec)
+    return rec
+
+
+def phase_shard_kernel_check(rate: float = 0.1):
+    """The kernels' shard arguments at the main path's shapes, as a rank of
+    a mesh calls them.  Head shard (mp = 2): #2 and #3 on text heads 6-11
+    of 12 (h_total 12, h0 6) and #8 on cross heads 4-7 of 8 equal those
+    heads of the full call bit for bit (outputs, gradients, masks), stay
+    within the existing limits of their plain versions on the shard, and
+    the keep mask read back through #2/#3 on the shard is the plain mask
+    of those heads.  Row shard (dp = 2): #2, #3, #4, #6 and #8 on the
+    second half of the rows with the seed folded by the rows' offset (to
+    2^31 + 12345, past the int32 range) equal the second half of the full
+    call bit for bit, #5 (a sum over rows) the full call on dt zeroed over
+    the first half within LORA_TOL, and the mask read back through #6 is
+    the second half of the whole hash mask.  Each shard call's time beside
+    the full call's."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.ops import flash_attention as fa
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as ld
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    times, seeds = {}, {}
+    # -- #2 and #3 at the text shape --------------------------------------
+    b, l, heads, dh = TEXT["b"], TEXT["l"], TEXT["heads"], TEXT["dh"]
+    offset = (b // 2) * heads * l * fa._lk_padded(l)
+    seed = seeds["attention"] = seed_folding_past(offset)
+    q, k, v, g = (torch.randn(b, l, heads * dh, generator=gen,
+                              device="cuda").bfloat16() for _ in range(4))
+    lens = torch.randint(1, l + 1, (b,), generator=gen, device="cuda")
+    pad = torch.arange(l, device="cuda")[None, :] >= lens[:, None]
+
+    def attention(ins, pad, seed, n, shard=(None, 0)):
+        fwd = lambda: fa._flash_fwd_cuda(*ins[:3], pad, seed, n, rate, True,
+                                         (shard[0] or n, shard[1]))
+        out, stats = fwd()
+        bwd = lambda: fa.flash_attention_bwd(*ins[:3], pad, seed, ins[3], n,
+                                             rate, stats, h_total=shard[0],
+                                             h0=shard[1])
+        return out, bwd(), fwd, bwd
+
+    full_out, full_grads, full_fwd, full_bwd = attention((q, k, v, g), pad,
+                                                         seed, heads)
+    h0 = heads // 2
+    n = heads - h0
+    cols = slice(h0 * dh, heads * dh)
+    sh = [x[..., cols].contiguous() for x in (q, k, v, g)]
+    out, grads, fwd, bwd = attention(sh, pad, seed, n, (heads, h0))
+    torch.cuda.synchronize()
+    check(torch.equal(out, full_out[..., cols]) and
+          all(torch.equal(a, w[..., cols]) for a, w in zip(grads, full_grads)),
+          "#2/#3 on heads 6-11 differ from those heads of the full call")
+    ref = fa.flash_attention_reference(*(x.float() for x in sh[:3]), pad,
+                                       seed, n, rate, heads, h0)
+    fwd_err = (out.float() - ref).abs().max().item()
+    del ref
+    want = fa.flash_attention_bwd_reference(*sh[:3], pad, seed, sh[3], n,
+                                            rate, heads, h0)
+    bwd_err = max((a.float() - w.float()).abs().max().item()
+                  / w.float().abs().max().item() for a, w in zip(grads, want))
+    del want
+    check(fwd_err <= KERNEL_TOL and bwd_err <= BWD_TOL,
+          f"#2/#3 head shard vs plain: {fwd_err} > {KERNEL_TOL} or "
+          f"{bwd_err} > {BWD_TOL}")
+    times["flash_attention_heads"] = _pair("flash_attention heads 6-11", fwd,
+                                           full_fwd)
+    times["flash_attention_bwd_heads"] = _pair(
+        "flash_attention_bwd heads 6-11", bwd, full_bwd)
+    n_mask = mask_read_back(4, l, n, dh, rate, 99, heads, h0)
+    check(torch.equal(
+        fa.dropout_keep_mask_reference(99, 4, n, l, l, rate, device="cuda",
+                                       h_total=heads, h0=h0),
+        fa.dropout_keep_mask_reference(99, 4, heads, l, l, rate,
+                                       device="cuda")[:, h0:]),
+        "the plain head-shard mask is not the full mask's heads")
+    rows = slice(b // 2, b)
+    folded = ld.fold_seed(seed, offset)
+    rw = [x[rows].contiguous() for x in (q, k, v, g)]
+    out, grads, fwd, bwd = attention(rw, pad[rows].contiguous(), folded,
+                                     heads)
+    torch.cuda.synchronize()
+    check(torch.equal(out, full_out[rows]) and
+          all(torch.equal(a, w[rows]) for a, w in zip(grads, full_grads)),
+          "#2/#3 on the second half of the rows (folded seed) differ from "
+          "the full call's")
+    times["flash_attention_rows"] = _pair("flash_attention rows 64-127", fwd,
+                                          full_fwd)
+    times["flash_attention_bwd_rows"] = _pair(
+        "flash_attention_bwd rows 64-127", bwd, full_bwd)
+    del q, k, v, g, sh, rw, full_out, full_grads, out, grads
+    # -- #8 at the cross shape ---------------------------------------------
+    b8, h8, lq, lk = KEEP_MASK_SHAPES["cross"]
+    offset = (b8 // 2) * h8 * lq * fa._lk_padded(lk)
+    seed = seeds["dropout_keep_mask"] = seed_folding_past(offset)
+    mask = lambda s, bb, hh, **kw: fa.dropout_keep_mask(
+        s, bb, hh, lq, lk, rate, device="cuda", **kw)
+    full = mask(seed, b8, h8)
+    m0 = h8 // 2
+    got = mask(seed, b8, h8 - m0, h_total=h8, h0=m0)
+    check(torch.equal(got, full[:, m0:]) and torch.equal(
+        got, fa.dropout_keep_mask_reference(seed, b8, h8 - m0, lq, lk, rate,
+                                            device="cuda", h_total=h8,
+                                            h0=m0)),
+        "#8 on cross heads 4-7 differs from the full call's or its plain "
+        "version")
+    folded8 = ld.fold_seed(seed, offset)
+    check(torch.equal(mask(folded8, b8 // 2, h8), full[b8 // 2:]) and
+          torch.equal(mask(folded8, b8 // 2, h8 - m0, h_total=h8, h0=m0),
+                      full[b8 // 2:, m0:]),
+          "#8 on the second half of the rows (folded seed) differs from the "
+          "full call's")
+    times["dropout_keep_mask_heads"] = _pair(
+        "dropout_keep_mask heads 4-7",
+        lambda: mask(seed, b8, h8 - m0, h_total=h8, h0=m0),
+        lambda: mask(seed, b8, h8))
+    times["dropout_keep_mask_rows"] = _pair(
+        "dropout_keep_mask rows 32-63", lambda: mask(folded8, b8 // 2, h8),
+        lambda: mask(seed, b8, h8))
+    # -- #4-#6 at the LoRA shape -------------------------------------------
+    m, d, r = LORA["m"], LORA["d"], LORA["r"]
+    h = torch.randn(m, d, generator=gen, device="cuda").bfloat16()
+    a = (0.05 * torch.randn(d, r, generator=gen, device="cuda")).bfloat16()
+    dt = torch.randn(m, r, generator=gen, device="cuda").bfloat16()
+    half = slice(m // 2, m)
+    seed = seeds["lora_dropout"] = seed_folding_past((m // 2) * d)
+    fold = ld.fold_seed(seed, (m // 2) * d)
+    sh_h, sh_dt = h[half].contiguous(), dt[half].contiguous()
+    dt_half = dt.clone()
+    dt_half[:m // 2] = 0
+    calls = {
+        "lora_dropout_fwd": (lambda: ld.lora_dropout_fwd(sh_h, a, fold, rate),
+                             lambda: ld.lora_dropout_fwd(h, a, seed, rate)),
+        "lora_dropout_da": (lambda: ld.lora_dropout_da(sh_h, sh_dt, fold,
+                                                       rate),
+                            lambda: ld.lora_dropout_da(h, dt_half, seed,
+                                                       rate)),
+        "lora_dropout_dh": (lambda: ld.lora_dropout_dh(sh_dt, a, fold, rate),
+                            lambda: ld.lora_dropout_dh(dt, a, seed, rate)),
+    }
+    for name, (shard_fn, full_fn) in calls.items():
+        got, want = shard_fn(), full_fn()
+        torch.cuda.synchronize()
+        if name == "lora_dropout_da":
+            err = (got.float() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            check(err <= LORA_TOL * top, f"{name} on rows {m // 2}-{m - 1} "
+                  f"vs the full call on them: {err} > {LORA_TOL} x {top}")
+        else:
+            check(torch.equal(got, want[half]), f"{name} on rows "
+                  f"{m // 2}-{m - 1} (folded seed) differs from the full "
+                  "call's")
+        times[f"{name}_rows"] = _pair(f"{name} rows {m // 2}-{m - 1}",
+                                      shard_fn, full_fn)
+    ones = torch.ones(m // 2, r, device="cuda", dtype=torch.bfloat16)
+    read = ld.lora_dropout_dh(ones, torch.full((d, r), 1.0 / r,
+                                               device="cuda",
+                                               dtype=torch.bfloat16),
+                              fold, rate)
+    check(torch.equal(read.float() * (1.0 - rate) > 0.5,
+                      ld.hash_keep_mask((m, d), seed, rate, "cuda")[half]),
+          "the mask read back through #6 on the row shard is not the second "
+          "half of the whole hash mask")
+    del h, a, dt, dt_half, sh_h, sh_dt, read
+    torch.cuda.empty_cache()
+    rec = {"seeds": seeds, "folded_seed": 2 ** 31 + 12345, "rate": rate,
+           "equal": True,
+           "mask_read_back_elements": n_mask,
+           "head_shard_fwd_max_abs_err": fwd_err,
+           "head_shard_bwd_max_err_of_largest_grad": bwd_err,
+           "times": times}
+    log("shard_kernel_check", **rec)
+    return rec
+
+
+def _state(trainer):
+    """Copies of a trainer's trainable parameters and AdamW state."""
+    import torch
+    state = {f"param/{k}": p.detach().clone()
+             for k, p in trainer.trainable.items()}
+    for i, st in enumerate(trainer.optimizer.state.values()):
+        state.update({f"opt/{i}/{k}": t.detach().clone()
+                      for k, t in st.items() if torch.is_tensor(t)})
+    return state
+
+
+def _start_group(cmd):
+    """A command started in a session of its own (its processes stopped
+    with it by _finish_group)."""
+    return subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ,
+                                                    PYTHONPATH=REPO),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+
+
+def _finish_group(proc, timeout: int):
+    """(exit code, stdout, stderr) of a _start_group command; past
+    `timeout` seconds its whole session is killed."""
+    import signal
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    return proc.returncode, out, err
+
+
+def phase_mesh_check(pipeline, train_prof):
+    """The mesh path on this card.  `train --multihost` starts through
+    torch.distributed.run --nproc_per_node=1 on the pipeline phase's shards
+    (full width, 2 text and 2 ViT layers, PIPELINE_STEPS steps: exit 0,
+    one result line, finite losses, no skipped micro-batch); meanwhile, in
+    a 1-rank NCCL group (file:// rendezvous in a temp dir),
+    train_config()'s Trainer on its 1 x 1 mesh takes two steps on the
+    train phase's batch, which must equal the plain Trainer's two steps
+    bit for bit (metrics, trainable parameters, AdamW state, launches per
+    step).  Once the subprocess is done, one more mesh
+    step runs alone under torch.profiler: its device time by kind beside
+    the train phase's profiled default step (`train_prof`), the NCCL
+    kernels of the gradient all-reduce counted (at one rank NCCL may reduce
+    without a kernel: then `nccl` is 0 and the bucket's flatten and
+    copy-back are the cost)."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from mmoe_multimodal_rec_tpu_torch.parallel.mesh import make_mesh
+    from mmoe_multimodal_rec_tpu_torch.train.loop import Trainer
+    cfg = train_config()
+    accum = cfg.train.optim.grad_accum
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out_dir = os.path.join(pipeline["root"], "multihost")
+    t0 = time.perf_counter()
+    proc = _start_group(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes=1",
+         "--nproc_per_node=1", "--master_addr=127.0.0.1",
+         f"--master_port={port}", "-m", PACKAGE, "train", "--multihost",
+         "--device=cuda", f"--data.train_pattern={pipeline['train_pattern']}",
+         "--train.epochs=1",
+         f"--train.steps_per_epoch={PIPELINE_STEPS * accum}",
+         "--train.log_every=1", *pipeline["flags"],
+         # depth cut to 2 text and 2 ViT layers: the launch, not the model,
+         # is what this run checks, and the frozen checkpoint it writes
+         # shrinks with the depth
+         "--model.text.num_layers=2", "--model.image.num_layers=2",
+         f"--train.checkpoint_dir={out_dir}/ckpt",
+         f"--train.output_dir={out_dir}"])
+    try:
+        def two_steps(mesh):
+            trainer = Trainer(cfg, device="cuda", mesh=mesh)
+            batch = stacked(cfg, trainer, seed=0)
+            reset_launches()
+            metrics = [trainer.run_step(batch) for _ in range(2)]
+            launches = {k: v / 2 for k, v in read_launches().items()}
+            return trainer, batch, metrics, launches, _state(trainer)
+
+        plain = two_steps(None)[2:]
+        gc.collect()
+        torch.cuda.empty_cache()
+        tmp = tempfile.mkdtemp(dir=WORK)
+        dist.init_process_group("nccl",
+                                init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            trainer, batch, *meshed = two_steps(make_mesh(cfg.train.mesh))
+            in_process_s = time.perf_counter() - t0
+            rc, out, err = _finish_group(proc, timeout=300)
+            cli_s = time.perf_counter() - t0
+            _, window_ms, by_kind, top = profiled(
+                lambda: trainer.run_step(batch))
+        finally:
+            dist.destroy_process_group()
+    finally:
+        if proc.poll() is None:
+            _finish_group(proc, timeout=0)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    check(meshed[0] == plain[0], f"mesh steps {meshed[0]} differ from the "
+                                 f"plain steps {plain[0]}")
+    differ = [k for k, t in plain[2].items()
+              if not torch.equal(t, meshed[2][k])]
+    check(not differ and plain[2].keys() == meshed[2].keys(),
+          f"after two steps the mesh path's state differs in {differ[:5]}")
+    want = expected_launches(cfg)
+    check(meshed[1] == plain[1] == want, f"launches per step: mesh "
+          f"{meshed[1]}, plain {plain[1]}, expected {want}")
+    check(rc == 0, f"torchrun train --multihost: exit {rc}\n{err[-3000:]}")
+    results = [json.loads(x) for x in out.splitlines()
+               if x.startswith('{"examples_per_sec"')]
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        steps = [json.loads(x) for x in f if '"loss"' in x]
+    check(len(results) == 1 and len(steps) == PIPELINE_STEPS and
+          all(math.isfinite(x["loss"]) and x["skipped_micro"] == 0
+              for x in steps),
+          f"torchrun train --multihost: {results}, steps {steps}")
+    device_ms = sum(by_kind.values())
+    rec = {"steps_equal_bitwise": True, "metrics": meshed[0],
+           "launches_per_step": meshed[1],
+           "mesh_profile": {"window_ms": window_ms, "device_ms": device_ms,
+                            "device_ms_by_kind": by_kind,
+                            "top_kernels_ms": top[:6]},
+           "default_step_device_ms": train_prof["device_ms"],
+           "mesh_minus_default_ms": device_ms - train_prof["device_ms"],
+           "nccl_ms": by_kind.get("nccl", 0.0),
+           "in_process_s": in_process_s,
+           "multihost_cli": {"exit": rc, "seconds": cli_s,
+                             "losses": [x["loss"] for x in steps],
+                             "examples_per_sec":
+                             results[0]["examples_per_sec"]}}
+    log("mesh_check", **rec)
+    return rec
+
 
 def ptxas_report(log_text: str):
     """ptxas's registers and spills, per kernel (its mangled name)."""
@@ -2980,9 +3337,35 @@ c.log("keep_mask_variant", label=sys.argv[1], round=int(sys.argv[2]),
 # --<kind>-variants: (build script, cases script, pattern of the kernels
 # whose registers and spills the build line reports, their count or None,
 # what they are, the pattern of those whose loops it reports or None)
+# The same for the attention backward: its build, and #3 at the text
+# shape (rates 0.1 and 0, each held to its plain version) with one line of
+# its times.
+BWD_VARIANT_BUILD = """
+from mmoe_multimodal_rec_tpu_torch.ops import cuda_lib
+print(cuda_lib.build("flash_attention_fwd"))
+print(cuda_lib.build("flash_attention_bwd"))
+"""
+
+BWD_VARIANT_CASES = """
+import sys
+import torch
+import chip_smoke as c
+ms = {}
+gen = torch.Generator(device="cuda").manual_seed(2)
+s = c.TEXT
+for case, rate in (("split_0.1", 0.1), ("split_0", 0.0)):
+    rec, _ = c.split_case(case, s["b"], s["l"], s["heads"], s["dh"], rate,
+                          gen)
+    ms[case] = rec["bwd_ms"]
+c.log("bwd_variant", label=sys.argv[1], round=int(sys.argv[2]), ms=ms)
+"""
+
 VARIANTS = {
     "fwd": (FWD_VARIANT_BUILD, FWD_VARIANT_CASES, r"attention_fwd_bf16ILi64E",
             3, "dh-64 bf16 forward kernels", None),
+    "bwd": (BWD_VARIANT_BUILD, BWD_VARIANT_CASES,
+            r"attention_bwd_(dq|dkdv)_bf16ILi64E", 4,
+            "dh-64 bf16 backward kernels", None),
     "lora": (LORA_VARIANT_BUILD, LORA_VARIANT_CASES, r"lora_", None,
              "LoRA dropout kernels", SASS_REPORTS["lora_dropout"]),
     "keep-mask": (KEEP_MASK_VARIANT_BUILD, KEEP_MASK_VARIANT_CASES,
@@ -3096,6 +3479,7 @@ def main() -> int:
     lora, lora_step = phase_lora_kernels()
     pbwd, pbwd_text, pbwd_step = phase_packed_bwd_kernel()
     keep, keep_step = phase_keep_mask_kernel()
+    shards = phase_shard_kernel_check()
     pred, launches, serving = phase_predictor(batch=64, forwards=3,
                                               profiled_forwards=2)
     phase_server(pred)
@@ -3116,10 +3500,10 @@ def main() -> int:
         phase_remat_check()
         shared_lora, shared_split = phase_shared_check()
         phase_topk_check()
-        shards = write_eval_shards()
-        phase_eval(ckpt, shards)
-        phase_home_eval(home_ckpt, shards)
-        phase_pipeline()
+        eval_shards = write_eval_shards()
+        phase_eval(ckpt, eval_shards)
+        phase_home_eval(home_ckpt, eval_shards)
+        phase_mesh_check(phase_pipeline(), train_prof)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -3251,6 +3635,11 @@ def main() -> int:
                                            "plain_ms", "bound_ms",
                                            "max_abs_err")}
                      for k, c in keep.items()}})
+    # the shard calls of shard_kernel_check beside the full calls
+    for rec in records:
+        rec["shard_ms"] = {k.rsplit("_", 1)[1]: v for k, v in
+                           shards["times"].items()
+                           if k.rsplit("_", 1)[0] == rec["name"]} or None
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,8 @@ Ported so far:
   HTTP server                                           -> `eval/`
 - LoRA merge, JAX param, shared-base and scan-layers conversion,
   reference checkpoints, metrics logging                -> `utils/`
+- data and tensor parallelism over torch.distributed (the JAX
+  `data` x `model` mesh; `train --multihost` under torchrun) -> `parallel/`
 - the JAX CLI's twelve commands                         -> `cli.py`
 """
 

@@ -21,6 +21,12 @@ runs on the host:
   python -m mmoe_multimodal_rec_tpu_torch serve --batch-size=64 \\
       --data.allow_hash_tokenizer=true
 
+`train --multihost` is one process of a torchrun launch (one per GPU):
+
+  python -m torch.distributed.run --nproc_per_node=4 \\
+      -m mmoe_multimodal_rec_tpu_torch train --multihost \\
+      --train.mesh.data_parallel=2 --train.mesh.model_parallel=2 ...
+
 Each takes the JAX CLI's flags and dotted config overrides; `train`,
 `eval` and `serve` also take `--device` (default cuda, which raises
 without a card; cpu runs the plain PyTorch path).  `train` writes the
@@ -72,19 +78,33 @@ def cmd_synth(argv: List[str]) -> int:
 def cmd_train(argv: List[str]) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-host training (not yet ported)")
+                    help="one process of a torchrun launch: join its "
+                         "torch.distributed group (NCCL on cuda:LOCAL_RANK, "
+                         "gloo with --device=cpu) and train on the mesh of "
+                         "--train.mesh.*")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cpu runs the plain "
                          "PyTorch path)")
     cfg_flags, rest = _split_flags(argv)
     args = ap.parse_args(rest)
     cfg = Config.from_flags(cfg_flags)
-    if args.multihost:
-        raise NotImplementedError("--multihost is not yet ported")
     from .train.loop import train_from_config
-    result = train_from_config(cfg, device=args.device)
-    print(json.dumps({"examples_per_sec": result["examples_per_sec"],
-                      "epoch_losses": result["epoch_losses"]["total"]}))
+    if not args.multihost:
+        result = train_from_config(cfg, device=args.device)
+        chief = True
+    else:
+        import torch.distributed as dist
+
+        from .parallel.mesh import init_distributed
+        device = init_distributed(args.device)
+        try:
+            result = train_from_config(cfg, device=device)
+            chief = dist.get_rank() == 0
+        finally:
+            dist.destroy_process_group()
+    if chief:
+        print(json.dumps({"examples_per_sec": result["examples_per_sec"],
+                          "epoch_losses": result["epoch_losses"]["total"]}))
     return 0
 
 

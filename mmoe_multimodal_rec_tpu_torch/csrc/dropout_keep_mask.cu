@@ -18,7 +18,11 @@
 // finalizer of ops/flash_attention.py:_hash_bits (the same as
 // csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu and
 // csrc/lora_dropout.cu compute), threshold = uint32(rate * (2^32 - 1)).
-// Bit-identical to the JAX interpret-mode stream.
+// Bit-identical to the JAX interpret-mode stream.  Under tensor
+// parallelism a rank holds heads [h0, h0 + H) of H_total and its rows key
+// on the global head (bi*H_total + h0 + hi), so its mask is that slice of
+// the full one; the batch offset of a data-parallel rank is folded into the
+// seed by the caller.
 //
 // Bound on this card: it reads nothing and writes rows*lk bytes.  At the
 // main path's shapes ([64, 8, 64, 64], 2.1 MB, and [64, 8, 2, 2], 2 KB) the
@@ -65,6 +69,11 @@ constexpr uint32_t kGolden = 2654435761u;
 struct Params {
   long long rows;
   int lk, runs;
+  // a head shard (heads [h0, h0 + heads) of h_total): local row r =
+  // (bi*heads + hi)*lq + q counts as the row (bi*h_total + h0 + hi)*lq + q
+  long long shard_rows;  // heads * lq; 0 when the heads are all of them
+  uint32_t skip_rows;    // (h_total - heads) * lq
+  uint32_t first_row;    // h0 * lq
   uint32_t row_step;  // lk_pad * kGolden: the hash input's step a row
   uint32_t seed, threshold;
   uint32_t thr_hi;    // threshold >> 16
@@ -98,8 +107,12 @@ __global__ void __launch_bounds__(THREADS)
   if (row >= p.rows) return;
   uint8_t* dst = out + row * p.lk;
   // the counter row * lk_pad + k wraps modulo 2^32, as the JAX kernel's
-  // uint32 does; so does its product with kGolden
-  const uint32_t xrow = (uint32_t)row * p.row_step + p.seed;
+  // uint32 does; so does its product with kGolden.  A head shard's row
+  // maps to its global row with one division a thread, outside the loop.
+  uint32_t grow = (uint32_t)row;
+  if (p.shard_rows)
+    grow += (uint32_t)(row / p.shard_rows) * p.skip_rows + p.first_row;
+  const uint32_t xrow = grow * p.row_step + p.seed;
   for (int run = threadIdx.x; run < p.runs; run += blockDim.x) {
     const int k0 = run * RUN;
     const uint32_t x = xrow + (uint32_t)k0 * kGolden;
@@ -118,14 +131,21 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 // out: [rows, lk] bytes (a torch.bool tensor), 16-byte aligned; rows =
-// b*h*lq; lk_pad: the counter's row stride (lk rounded up to 128 unless the
-// caller gives another).
+// b*heads*lq; lk_pad: the counter's row stride (lk rounded up to 128 unless
+// the caller gives another); the heads are [h0, h0 + heads) of h_total, so
+// a row's counter takes the global head bi*h_total + h0 + hi.
 extern "C" int mmoe_dropout_keep_mask(void* out, long long rows, int lk,
-                                      int lk_pad, unsigned int seed,
+                                      int lk_pad, int heads, int lq,
+                                      int h_total, int h0, unsigned int seed,
                                       unsigned int threshold, void* stream) {
-  if (rows <= 0 || lk <= 0 || lk_pad <= 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || lk <= 0 || lk_pad <= 0 || heads <= 0 || lq <= 0 ||
+      h0 < 0 || h0 + heads > h_total || rows % ((long long)heads * lq))
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.rows = rows;
+  p.shard_rows = heads == h_total ? 0 : (long long)heads * lq;
+  p.skip_rows = (uint32_t)(h_total - heads) * (uint32_t)lq;
+  p.first_row = (uint32_t)h0 * (uint32_t)lq;
   p.lk = lk;
   p.runs = (lk + RUN - 1) / RUN;
   p.row_step = (uint32_t)lk_pad * kGolden;

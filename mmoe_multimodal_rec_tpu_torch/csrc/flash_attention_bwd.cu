@@ -25,7 +25,8 @@
 // (csrc/flash_attention_fwd.cu):
 //   p    = exp2(s - m) / l, s the base-2 score with padded keys at -1e9,
 //          i.e. the pre-dropout softmax exactly as the forward made it;
-//   keep = the forward's keep mask, regenerated from the position hash;
+//   keep = the forward's keep mask, regenerated from the position hash
+//          (over the global head b*H_total + h0 + h of a head shard);
 //   dv   = (p*keep)^T dO / (1 - r)             (p*keep cast to the input
 //                                                 dtype first, as in JAX)
 //   dp   = keep * (dO v^T)
@@ -82,7 +83,8 @@
 // C interface (ctypes): mmoe_flash_attention_bwd returns cudaError_t as an
 // int; 0 means every launch was accepted.  It launches on the given stream,
 // does not synchronise and allocates nothing: `delta` is caller-provided
-// fp32 scratch [B, H, L].  The bound above counts q, k, v, dO, the
+// fp32 scratch [B, H_total, L], as the statistics (a tensor-parallel shard
+// reads and writes its heads' rows).  The bound above counts q, k, v, dO, the
 // statistics in and dq, dk, dv out.
 
 #include <cuda_bf16.h>
@@ -106,17 +108,23 @@ struct Args {
   const T* v;
   const uint8_t* pad;   // [B, L], 1 = padded key; may be null
   const T* dout;        // dO [B, L, D]
-  const float2* stats;  // [B, H, L] (m, l) from the forward
-  float* delta;         // [B, H, L] scratch
+  const float2* stats;  // [B, H_total, L] (m, l) from the forward
+  float* delta;         // [B, H_total, L] scratch
   T* dq;
   T* dk;
   T* dv;
   int L, H, lk_pad;
   int row_stride, hb, group_stride;  // the packed layout (bf16 only)
   float scale;          // 1 / sqrt(dh)
-  uint32_t seed, threshold;
+  uint32_t seed, threshold;  // threshold 0: no dropout
   float keep_scale;     // 1 / (1 - rate)
-  int dropout;
+  // H_total | h0 << 16: these H heads are [h0, h0 + H) of H_total (a
+  // tensor-parallel shard), the global head b*H_total + h0 + h keys the
+  // dropout counter and the statistics' row.  Packed into one word, and
+  // the dropout flag folded into `threshold`, so that Args stays at 128
+  // bytes: at 136 the bf16 kernels compiled to slower code (#3 1.89 ms a
+  // call at the text shape against 1.50, one H100)
+  uint32_t heads;
 };
 
 // ops/flash_attention.py:_hash_bits over one uint32 counter.
@@ -225,7 +233,7 @@ __device__ __forceinline__ float prob(const Args<float>& a, uint32_t bh,
                                       float m, float linv, bool* keep) {
   const float s2 = kbias == 0.0f ? s * a.scale * LOG2E : kbias;
   *keep = true;
-  if (a.dropout) {
+  if (a.threshold) {
     const uint32_t ctr =
         (bh * (uint32_t)a.L + (uint32_t)row) * (uint32_t)a.lk_pad +
         (uint32_t)key;
@@ -305,7 +313,8 @@ attention_bwd_dkdv(const Args<float> a) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int D = a.H * DH;
-  const uint32_t bh = (uint32_t)b * (uint32_t)a.H + (uint32_t)h;
+  // the global head: the dropout counter's and the statistics' row
+  const uint32_t bh = (uint32_t)b * (a.heads & 0xFFFFu) + (a.heads >> 16) + (uint32_t)h;
   const size_t base = (size_t)b * L * D + (size_t)h * DH;
   const uint8_t* pad_b = a.pad ? a.pad + (size_t)b * L : nullptr;
 
@@ -371,7 +380,8 @@ attention_bwd_dq(const Args<float> a) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int D = a.H * DH;
-  const uint32_t bh = (uint32_t)b * (uint32_t)a.H + (uint32_t)h;
+  // the global head: the dropout counter's and the statistics' row
+  const uint32_t bh = (uint32_t)b * (a.heads & 0xFFFFu) + (a.heads >> 16) + (uint32_t)h;
   const size_t base = (size_t)b * L * D + (size_t)h * DH;
   const uint8_t* pad_b = a.pad ? a.pad + (size_t)b * L : nullptr;
 
@@ -728,7 +738,8 @@ attention_bwd_dkdv_bf16(const Args<bf16> a) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int D = a.H * DH;
-  const uint32_t bh = (uint32_t)b * (uint32_t)a.H + (uint32_t)h;
+  // the global head: the dropout counter's and the statistics' row
+  const uint32_t bh = (uint32_t)b * (a.heads & 0xFFFFu) + (a.heads >> 16) + (uint32_t)h;
   const HeadRows<DH, PACKED> rows(a, b, h);
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
@@ -799,7 +810,7 @@ attention_bwd_dkdv_bf16(const Args<bf16> a) {
         const float s2 = bias == 0.0f ? s[j][e] * scale2 : bias;
         const float p = exp2f(s2 - m[c]) * linv[c];
         bool keep = true;
-        if (a.dropout) {
+        if (a.threshold) {
           const uint32_t ctr =
               (bh * (uint32_t)L + (uint32_t)(qt * MT + c)) *
                   (uint32_t)a.lk_pad +
@@ -853,7 +864,8 @@ attention_bwd_dq_bf16(const Args<bf16> a) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int D = a.H * DH;
-  const uint32_t bh = (uint32_t)b * (uint32_t)a.H + (uint32_t)h;
+  // the global head: the dropout counter's and the statistics' row
+  const uint32_t bh = (uint32_t)b * (a.heads & 0xFFFFu) + (a.heads >> 16) + (uint32_t)h;
   const HeadRows<DH, PACKED> rows(a, b, h);
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
@@ -931,7 +943,7 @@ attention_bwd_dq_bf16(const Args<bf16> a) {
         const float s2 = bias[c] == 0.0f ? s[j][e] * scale2 : bias[c];
         const float p = exp2f(s2 - m[e / 2]) * linv[e / 2];
         bool keep = true;
-        if (a.dropout) {
+        if (a.threshold) {
           const uint32_t ctr =
               (bh * (uint32_t)L + (uint32_t)(row0 + (e / 2) * 8)) *
                   (uint32_t)a.lk_pad +
@@ -1006,9 +1018,9 @@ template <typename T>
 Args<T> make_args(const void* q, const void* k, const void* v,
                   const void* pad, const void* dout,
                   const void* stats, void* delta, void* dq, void* dk,
-                  void* dv, int L, int H, int lk_pad, float scale,
-                  unsigned int seed, unsigned int threshold, float keep_scale,
-                  int dropout) {
+                  void* dv, int L, int H, int lk_pad, int H_total, int h0,
+                  float scale, unsigned int seed, unsigned int threshold,
+                  float keep_scale, int dropout) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
@@ -1023,15 +1035,15 @@ Args<T> make_args(const void* q, const void* k, const void* v,
   a.L = L;
   a.H = H;
   a.lk_pad = lk_pad;
+  a.heads = (uint32_t)H_total | (uint32_t)h0 << 16;
   // the split layout; the packed entry point sets its own
   a.row_stride = 0;
   a.hb = H;
   a.group_stride = 0;
   a.scale = scale;
   a.seed = seed;
-  a.threshold = threshold;
+  a.threshold = dropout ? threshold : 0u;
   a.keep_scale = keep_scale;
-  a.dropout = dropout;
   return a;
 }
 
@@ -1039,26 +1051,30 @@ Args<T> make_args(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v, dout, dq, dk, dv are
 // [B, L, n_heads*head_dim] contiguous; pad [B, L] may be null; stats
-// [B, n_heads, L] float2; delta [B, n_heads, L] fp32 scratch.
+// [B, H_total, L] float2; delta [B, H_total, L] fp32 scratch.  The n_heads
+// heads are [h0, h0 + n_heads) of H_total, as in mmoe_flash_attention_fwd.
 extern "C" int mmoe_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* pad,
     const void* dout, const void* stats, void* delta,
     void* dq, void* dk, void* dv, int dtype, int batch, int L, int n_heads,
-    int head_dim, int lk_pad, float scale, unsigned int seed,
-    unsigned int threshold, float keep_scale, int dropout, void* stream) {
+    int head_dim, int lk_pad, int H_total, int h0, float scale,
+    unsigned int seed, unsigned int threshold, float keep_scale, int dropout,
+    void* stream) {
+  if (h0 < 0 || h0 + n_heads > H_total || H_total > 0xFFFF)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const Args<bf16> a = make_args<bf16>(q, k, v, pad, dout, stats, delta,
                                          dq, dk, dv, L, n_heads, lk_pad,
-                                         scale, seed, threshold, keep_scale,
-                                         dropout);
+                                         H_total, h0, scale, seed, threshold,
+                                         keep_scale, dropout);
     if (head_dim == 64) return launch_bf16<64, false>(a, batch, s);
     if (head_dim == 128) return launch_bf16<128, false>(a, batch, s);
   } else if (dtype == 0) {
     const Args<float> a = make_args<float>(q, k, v, pad, dout, stats, delta,
                                            dq, dk, dv, L, n_heads, lk_pad,
-                                           scale, seed, threshold,
-                                           keep_scale, dropout);
+                                           H_total, h0, scale, seed,
+                                           threshold, keep_scale, dropout);
     if (head_dim == 64) return launch_fp32<64, 64>(a, batch, s);
     // dh 128 takes 32-row tiles to stay inside 227 KB of shared memory
     if (head_dim == 128) return launch_fp32<128, 32>(a, batch, s);
@@ -1068,21 +1084,24 @@ extern "C" int mmoe_flash_attention_bwd(
 
 // The packed backward, bf16 only: qkv and dqkv [B, L, 3D] in the
 // group-interleaved layout (hb heads a group), dout [B, L, n_heads*head_dim]
-// head-major; pad [B, L] may be null; stats [B, n_heads, L] float2 from the
-// forward; delta [B, n_heads, L] fp32 scratch.
+// head-major; pad [B, L] may be null; stats [B, H_total, L] float2 from the
+// forward; delta [B, H_total, L] fp32 scratch.
 extern "C" int mmoe_flash_attention_bwd_packed(
     const void* qkv, const void* pad, const void* dout, const void* stats,
     void* delta, void* dqkv, int dtype, int batch, int L, int n_heads, int hb,
-    int head_dim, int lk_pad, float scale, unsigned int seed,
-    unsigned int threshold, float keep_scale, int dropout, void* stream) {
-  if (dtype != 1 || hb <= 0 || n_heads % hb) return (int)cudaErrorInvalidValue;
+    int head_dim, int lk_pad, int H_total, int h0, float scale,
+    unsigned int seed, unsigned int threshold, float keep_scale, int dropout,
+    void* stream) {
+  if (dtype != 1 || hb <= 0 || n_heads % hb || h0 < 0 ||
+      h0 + n_heads > H_total || H_total > 0xFFFF)
+    return (int)cudaErrorInvalidValue;
   const size_t w = (size_t)hb * head_dim;
   const bf16* in = static_cast<const bf16*>(qkv);
   bf16* out = static_cast<bf16*>(dqkv);
   Args<bf16> a = make_args<bf16>(in, in + w, in + 2 * w, pad, dout, stats,
                                  delta, out, out + w, out + 2 * w, L, n_heads,
-                                 lk_pad, scale, seed, threshold, keep_scale,
-                                 dropout);
+                                 lk_pad, H_total, h0, scale, seed, threshold,
+                                 keep_scale, dropout);
   a.row_stride = 3 * n_heads * head_dim;
   a.hb = hb;
   a.group_stride = (int)(3 * w);

@@ -20,7 +20,9 @@
 // - split (q, k, v [B, L, D] each): row_stride D, hb = H, group_stride 0.
 // The output is [B, L, D] head-major.  Optionally the softmax statistics of
 // every row are written for the backward (csrc/flash_attention_bwd.cu):
-// stats[(b*H + h)*L + q] = (m, l), the row max of the base-2 scores
+// stats[(b*H_total + h0 + h)*L + q] = (m, l) (the global head: under
+// tensor parallelism the rank's heads fill their rows of [B, H_total, L]),
+// the row max of the base-2 scores
 // s*log2(e)/sqrt(dh) and the row sum of exp2(s - m) over all keys.  The
 // backward rebuilds p = exp2(s - m) / l exactly as this kernel made it.  A
 // single log-sum-exp would not do: an all-pad row has m = -1e9, where fp32
@@ -92,7 +94,11 @@
 //   keys >= L score -inf, q rows >= L are not stored.
 // - Dropout: the keep mask is the JAX interpret-mode murmur hash
 //   (`_keep_mask(use_prng=False)`), keyed on ((b*H + h)*L + q)*lk_pad + k
-//   with lk_pad = L rounded up to 128, keep = bits >= threshold.  The
+//   with lk_pad = L rounded up to 128, keep = bits >= threshold.  A
+//   tensor-parallel shard holding heads [h0, h0 + H) of H_total keys on
+//   b*H_total + h0 + h in place of b*H + h, so its mask is that slice of
+//   the full call's (a data-parallel shard's batch offset is folded into
+//   the seed by the caller, models/layers).  The
 //   counter depends on the position only, so q may be tiled freely.  The
 //   row sum counts every key, kept or dropped, and 1/(1-rate) rides the
 //   epilogue, as in `_head_fwd`.  Masks are bit-identical to the JAX
@@ -122,8 +128,12 @@ struct Args {
   const T* v;
   const uint8_t* pad;  // [B, L], 1 = padded key; may be null
   T* out;              // [B, L, H*DH]
-  float2* stats;       // [B, H, L] (m, l); may be null
+  float2* stats;       // [B, H_total, L] (m, l); may be null
   int L, H, hb, row_stride, group_stride, lk_pad;
+  // the dropout counter's head stride and first head: these H heads are
+  // [h0, h0 + H) of H_total (a tensor-parallel shard; H_total = H, h0 = 0
+  // otherwise)
+  uint32_t H_total, h0;
   float scale2;        // log2(e) / sqrt(dh)
   uint32_t seed, threshold;
   float keep_scale;    // 1 / (1 - rate)
@@ -517,7 +527,8 @@ attention_fwd_bf16(const Args<bf16> a) {
   // this lane's two rows, and their dropout counters at key 0 (uint32
   // wrap, as in JAX)
   const int row0 = q0 + warp * 16 + g;
-  const uint32_t bh = (uint32_t)b * (uint32_t)a.H + (uint32_t)h;
+  // the global head: the dropout counter's and the statistics' row
+  const uint32_t bh = (uint32_t)b * a.H_total + a.h0 + (uint32_t)h;
   const uint32_t kbase0 =
       (bh * (uint32_t)L + (uint32_t)row0) * (uint32_t)a.lk_pad;
   const uint32_t kbase1 = kbase0 + 8u * (uint32_t)a.lk_pad;
@@ -737,7 +748,8 @@ attention_fwd_fp32(const Args<float> a) {
   // every other column
   const int r = (threadIdx.x / 32) * 16 + (threadIdx.x % 32) / 2;
   const int half = threadIdx.x % 2;
-  const uint32_t bh = (uint32_t)b * (uint32_t)a.H + (uint32_t)h;
+  // the global head: the dropout counter's and the statistics' row
+  const uint32_t bh = (uint32_t)b * a.H_total + a.h0 + (uint32_t)h;
   const uint32_t key_base =
       (bh * (uint32_t)L + (uint32_t)(q0 + r)) * (uint32_t)a.lk_pad;
   float m = -INFINITY;
@@ -824,8 +836,8 @@ template <typename T>
 Args<T> make_args(const void* q, const void* k, const void* v,
                   const void* pad, void* out, void* stats, int L, int H,
                   int hb, int row_stride, int group_stride, int lk_pad,
-                  float scale, unsigned int seed, unsigned int threshold,
-                  float keep_scale, int dropout) {
+                  int H_total, int h0, float scale, unsigned int seed,
+                  unsigned int threshold, float keep_scale, int dropout) {
   Args<T> a;
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
@@ -839,6 +851,8 @@ Args<T> make_args(const void* q, const void* k, const void* v,
   a.row_stride = row_stride;
   a.group_stride = group_stride;
   a.lk_pad = lk_pad;
+  a.H_total = (uint32_t)H_total;
+  a.h0 = (uint32_t)h0;
   a.scale2 = scale * LOG2E;
   a.seed = seed;
   a.threshold = threshold;
@@ -860,18 +874,21 @@ cudaError_t launch_bf16_layout(const Args<bf16>& a, bool split, bool stats,
 // dtype: 0 = float32, 1 = bfloat16.  pad and stats may be null.
 // Element strides and offsets: row_stride between rows of q/k/v, head h at
 // column (h / hb) * group_stride + (h % hb) * head_dim; lk_pad is the
-// dropout counter's key stride.
+// dropout counter's key stride; the n_heads heads are [h0, h0 + n_heads) of
+// H_total, so the counter is ((b*H_total + h0 + h)*L + q)*lk_pad + k, and
+// stats is [B, H_total, L] (the shard's heads' rows written).
 extern "C" int mmoe_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* pad, void* out,
     void* stats, int dtype, int batch, int L, int n_heads, int hb,
-    int head_dim, int row_stride, int group_stride, int lk_pad, float scale,
-    unsigned int seed, unsigned int threshold, float keep_scale, int dropout,
-    void* stream) {
+    int head_dim, int row_stride, int group_stride, int lk_pad, int H_total,
+    int h0, float scale, unsigned int seed, unsigned int threshold,
+    float keep_scale, int dropout, void* stream) {
+  if (h0 < 0 || h0 + n_heads > H_total) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const Args<bf16> a = make_args<bf16>(
         q, k, v, pad, out, stats, L, n_heads, hb, row_stride, group_stride,
-        lk_pad, scale, seed, threshold, keep_scale, dropout);
+        lk_pad, H_total, h0, scale, seed, threshold, keep_scale, dropout);
     // the split layout always stores the statistics (its backward reads
     // them); the packed one only when asked
     const bool split = group_stride == 0 && hb == n_heads;
@@ -882,7 +899,7 @@ extern "C" int mmoe_flash_attention_fwd(
   } else if (dtype == 0) {
     const Args<float> a = make_args<float>(
         q, k, v, pad, out, stats, L, n_heads, hb, row_stride, group_stride,
-        lk_pad, scale, seed, threshold, keep_scale, dropout);
+        lk_pad, H_total, h0, scale, seed, threshold, keep_scale, dropout);
     if (head_dim == 64) return launch_fp32<64>(a, batch, s);
     if (head_dim == 128) return launch_fp32<128>(a, batch, s);
   }

@@ -11,7 +11,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .layers import Dense, LayerNorm, dropout, gelu_exact
+from ..parallel.mesh import Axis, sum_over_data
+from .layers import Dense, LayerNorm, data_axis, dropout, gelu_exact
 
 
 class DenseGate(nn.Module):
@@ -32,7 +33,8 @@ class TopKGate(nn.Module):
     share of rows routing to expert i, the top-k mask's mean / k; P_i: the
     mean probability).  The top k come from a stable descending sort, so a
     tie takes the lower index, as lax.top_k does (torch.topk promises no
-    order among equal values)."""
+    order among equal values).  In a data-parallel forward (`data`) f and P
+    are the global micro-batch's means (sums over data)."""
 
     def __init__(self, d: int, n_expert: int, k: int = 2,
                  dtype: torch.dtype = torch.float32):
@@ -41,7 +43,7 @@ class TopKGate(nn.Module):
         self.n_expert = n_expert
         self.k = k
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, data: Optional[Axis] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         probs = torch.softmax(self.fc(x).float(), dim=-1)
         k = min(self.k, self.n_expert)
@@ -50,8 +52,13 @@ class TopKGate(nn.Module):
         mask = torch.zeros_like(probs).scatter_(1, idx, 1.0)
         w = probs * mask
         w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
-        frac = mask.mean(0) / k
-        balance = self.n_expert * (frac * probs.mean(0)).sum()
+        if data is None:
+            frac, p_mean = mask.mean(0) / k, probs.mean(0)
+        else:
+            n = x.shape[0] * data.size
+            frac = sum_over_data(mask.sum(0), data) / n / k
+            p_mean = sum_over_data(probs.sum(0), data) / n
+        balance = self.n_expert * (frac * p_mean).sum()
         return w, balance
 
 
@@ -65,15 +72,16 @@ def make_gate(gate_type: str, d: int, n_expert: int, topk: int,
     return DenseGate(d, n_expert, dtype)
 
 
-def make_gates(gates, query: torch.Tensor):
+def make_gates(gates, query: torch.Tensor, data: Optional[Axis] = None):
     """Per-task gate weights and the summed balance term (0 for dense), as
-    JAX make_gates returns them."""
+    JAX make_gates returns them; `data` as TopKGate's."""
     weights, balance = [], torch.zeros((), device=query.device)
     for gate in gates:
-        out = gate(query)
         if isinstance(gate, TopKGate):
-            out, b = out
+            out, b = gate(query, data)
             balance = balance + b
+        else:
+            out = gate(query)
         weights.append(out)
     return weights, balance
 
@@ -120,7 +128,7 @@ class TwoTaskMMoE(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         query = expert_vecs.mean(1)
         (w_good, w_best), balance = make_gates(
-            (self.gate_good, self.gate_best), query)
+            (self.gate_good, self.gate_best), query, data_axis(rng))
         fused_good = torch.einsum("bn,bnd->bd", w_good.to(expert_vecs.dtype),
                                   expert_vecs)
         fused_best = torch.einsum("bn,bnd->bd", w_best.to(expert_vecs.dtype),

@@ -5,8 +5,9 @@ ExpertMLP, :224-243 FeatureGate/SelfGate, :530-638 HOME_MMoE_Complete,
 train_HoME.py:100-116 HomeExpertWrapper), with the dense or the top-k
 gate (model.gate_type).
 
-The wrappers' BatchNorm statistics are taken over the whole micro-batch on
-its one card; models/layers.BatchNorm1D keeps the running ones as buffers.
+The wrappers' BatchNorm statistics are taken over the whole global
+micro-batch, in a data-parallel forward through sums over `data`
+(models/layers.BatchNorm1D, which keeps the running ones as buffers).
 Dropout seeds are drawn in call order: the meta, good and best expert MLPs,
 then the two towers.
 """
@@ -19,7 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .heads import make_gate, make_gates
-from .layers import BatchNorm1D, Dense, LayerNorm, Mlp, dropout, gelu_exact
+from .layers import (BatchNorm1D, Dense, LayerNorm, Mlp, data_axis, dropout,
+                     gelu_exact)
 
 
 class FeatureGate(nn.Module):
@@ -128,7 +130,7 @@ class HomeMMoEHead(nn.Module):
                     inputs[group][:, i], deterministic, rng))
                 for i in range(n_exp)]
         weights, balance = make_gates((self.gate_good, self.gate_best),
-                                      shared)
+                                      shared, data_axis(rng))
         logits = []
         for task, w in zip(("good", "best"), weights):
             experts = torch.stack(enhanced["meta"] + enhanced[task], dim=1)
@@ -152,5 +154,5 @@ class HomeExpertWrapper(nn.Module):
                 use_running_average: bool = True,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         y = F.silu(self.norm(x.reshape(-1, x.shape[-1]),
-                             use_running_average))
+                             use_running_average, data_axis(rng)))
         return dropout(y, self.dropout, deterministic, rng).reshape(x.shape)

@@ -41,10 +41,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import (KERNEL_HEAD_DIMS, _head_group,
-                                   dropout_keep_mask, flash_attention,
-                                   flash_attention_packed, pack_qkv_weights)
-from ..ops.lora_dropout import (hash_keep_mask, lora_dropout_matmul,
-                                lora_fused_ok)
+                                   _lk_padded, dropout_keep_mask,
+                                   flash_attention, flash_attention_packed,
+                                   pack_qkv_weights)
+from ..ops.lora_dropout import (fold_seed, hash_keep_mask,
+                                lora_dropout_matmul, lora_fused_ok)
+from ..parallel.mesh import (Axis, DataShard, copy_to_model,
+                             reduce_from_model, sum_over_data)
 
 NEG_INF = -1e9  # finite mask value: keeps bf16 softmax NaN-free on all-pad rows
 
@@ -74,32 +77,64 @@ def draw_seed(rng: Optional[torch.Generator]) -> int:
     next seed of a `SeedTape`."""
     if isinstance(rng, SeedTape):
         return rng.draw()
+    if isinstance(rng, DataShard):
+        rng = rng.generator
     if rng is None:
         raise ValueError("a training forward (deterministic=False) needs "
                          "rng, the micro-batch's torch.Generator")
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=rng))
 
 
-def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def data_axis(rng) -> Optional[Axis]:
+    """The mesh's `data` axis of a data-parallel training forward (`rng` a
+    parallel.mesh.DataShard, or a SeedTape over one) when it has more than
+    one rank, else None: the forward holds the whole micro-batch."""
+    if isinstance(rng, SeedTape):
+        rng = rng.rng
+    if isinstance(rng, DataShard) and rng.axis.size > 1:
+        return rng.axis
+    return None
+
+
+def hash_dropout(x: torch.Tensor, rate: float, seed: int, offset: int = 0,
+                 width: Optional[int] = None, col0: int = 0) -> torch.Tensor:
     """models/layers.HashDropout with an explicit seed: x / (1 - rate) where
-    kept, 0 elsewhere, in x's dtype."""
-    keep = hash_keep_mask(x.shape, seed, rate, x.device)
+    kept, 0 elsewhere, in x's dtype.  `offset`: the flat index of x's first
+    element in the global array (a data-parallel shard's rows, folded into
+    the seed); `width`, `col0`: x holds columns [col0, col0 + D) of rows
+    `width` wide (a tensor-parallel shard), so it keys on
+    row*width + col0 + col."""
+    keep = hash_keep_mask(x.shape, fold_seed(seed, offset), rate, x.device,
+                          width, col0)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            rng: Optional[torch.Generator]) -> torch.Tensor:
+            rng: Optional[torch.Generator],
+            cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One HashDropout site: identity at rate 0 or deterministic (no seed is
-    drawn then, as flax draws none), else `hash_dropout` on a fresh seed."""
+    drawn then, as flax draws none), else `hash_dropout` on a fresh seed.
+    In a data-parallel forward x's leading axis is the rank's equal share
+    of the global one, so its global flat offset is rank * x.numel() (rows
+    of `cols` = (width, col0) when x is a column shard)."""
     if rate == 0.0 or deterministic:
         return x
-    return hash_dropout(x, rate, draw_seed(rng))
+    seed = draw_seed(rng)
+    data = data_axis(rng)
+    width, col0 = cols if cols is not None else (None, 0)
+    rows_numel = x.numel() if width is None else \
+        x.numel() // x.shape[-1] * width
+    offset = data.rank * rows_numel if data is not None else 0
+    return hash_dropout(x, rate, seed, offset, width, col0)
 
 
 class SeedTape:
     """The dropout seeds of one recomputed stretch of a layer: drawn from
     the micro-batch's generator in call order during the first forward,
-    and replayed in the same order by each recompute (`replay`)."""
+    and replayed in the same order by each recompute (`replay`).  The tape
+    holds the draws; a data-parallel site folds its global offset into
+    its draw each time it runs (`dropout`, `data_axis`), the same offset in
+    the first forward and in the recompute."""
 
     def __init__(self, rng: Optional[torch.Generator]):
         self.rng = rng
@@ -357,7 +392,13 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 
 class Dense(nn.Module):
     """flax nn.Dense(dtype=...) over fp32 params: y = x W^T + b with x, W
-    and b cast to the compute dtype first."""
+    and b cast to the compute dtype first.
+
+    Under tensor parallelism (`shard`, parallel/mesh.shard_model) the layer
+    is "col" (this rank's rows of W and b: y's column shard, x fed through
+    `copy_to_model`) or "row" (this rank's columns of W, x a column shard;
+    the partial products summed by `reduce_from_model`, then the whole bias
+    added once)."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, bias_init: float = 0.0):
@@ -366,6 +407,11 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features))
         self.dtype = dtype
         self.bias_init = bias_init
+        self.parallel: Optional[str] = None
+        self.axis: Optional[Axis] = None
+
+    def shard(self, parallel: str, axis: Axis) -> None:
+        self.parallel, self.axis = parallel, axis
 
     def init_params(self, generator):
         # lecun_normal: truncated normal, std sqrt(1/fan_in) / .8796...
@@ -375,8 +421,13 @@ class Dense(nn.Module):
             self.bias.fill_(self.bias_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if self.parallel == "col":
+            return F.linear(copy_to_model(x.to(self.dtype), self.axis), w, b)
+        if self.parallel == "row":
+            return reduce_from_model(F.linear(x.to(self.dtype), w),
+                                     self.axis) + b
+        return F.linear(x.to(self.dtype), w, b)
 
 
 class LoRADense(nn.Module):
@@ -393,7 +444,10 @@ class LoRADense(nn.Module):
     otherwise HashDropout followed by the thin matmul.  Both branches draw
     one seed and key the same mask on it; they differ only in rounding
     (the fused one multiplies by 1/(1-rate) rounded to the compute dtype
-    and rounds dA to it, as the JAX kernels do)."""
+    and rounds dA to it, as the JAX kernels do).  Under tensor parallelism
+    the base is column-parallel, lora_b a column shard and lora_a whole:
+    t = drop(x) A goes through `copy_to_model`, so its gradient, and with
+    it dA and the dropped input's gradient, is whole on every rank."""
 
     def __init__(self, in_features: int, out_features: int, rank: int,
                  alpha: float, dtype: torch.dtype = torch.float32,
@@ -435,11 +489,18 @@ class LoRADense(nn.Module):
             b = b.reshape(2 * r, -1)
         if (self.fused_dropout and not deterministic and self.dropout > 0.0
                 and lora_fused_ok(h, a)):
+            data = data_axis(rng)
+            seed = fold_seed(draw_seed(rng),
+                             data.rank * h.numel() if data else 0)
             t = lora_dropout_matmul(h.reshape(-1, h.shape[-1]).contiguous(),
-                                    a, draw_seed(rng), self.dropout)
+                                    a, seed, self.dropout)
             t = t.reshape(h.shape[:-1] + (a.shape[-1],))
         else:
             t = dropout(h, self.dropout, deterministic, rng) @ a
+        if self.base.parallel == "col":
+            # lora_a is whole on every rank and lora_b a column shard: t's
+            # gradient sums over the shards, which makes dA and dh whole
+            t = copy_to_model(t, self.base.axis)
         if self.sides == 2:
             rows = torch.arange(h.shape[0], device=h.device) >= split
             cols = torch.arange(2 * r, device=h.device) >= r
@@ -497,11 +558,14 @@ class Embed(nn.Module):
 
 def _dot_product_attention(q, k, v, pad_mask: Optional[torch.Tensor],
                            dtype: torch.dtype, rate: float = 0.0,
-                           seed: Optional[int] = None) -> torch.Tensor:
+                           seed: Optional[int] = None,
+                           h_total: Optional[int] = None,
+                           h0: int = 0) -> torch.Tensor:
     """Plain attention in head-split layout q,k,v [B, L, H, Dh]; pad_mask
     [B, Lk] True = pad.  Scores in the compute dtype, softmax in fp32;
     dropout on the weights (rate > 0) with the attention counter hash, its
-    mask from `dropout_keep_mask` (on a CUDA tensor the Hopper kernel)."""
+    mask from `dropout_keep_mask` (on a CUDA tensor the Hopper kernel), the
+    H heads being [h0, h0 + H) of h_total."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
     if pad_mask is not None:
         scores = scores.masked_fill(pad_mask[:, None, None, :], NEG_INF)
@@ -509,7 +573,7 @@ def _dot_product_attention(q, k, v, pad_mask: Optional[torch.Tensor],
     if rate > 0.0:
         b, lq, h, _ = q.shape
         keep = dropout_keep_mask(seed, b, h, lq, k.shape[1], rate,
-                                 device=q.device)
+                                 device=q.device, h_total=h_total, h0=h0)
         weights = torch.where(keep, weights / (1.0 - rate), 0.0)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
@@ -540,7 +604,13 @@ class Attention(nn.Module):
     layer's RematState under a quantising policy: the first forward saves
     q/k/v (qkv on the packed path) quantised and goes on with their
     dequantised values; the recompute restores them without the
-    projections' products."""
+    projections' products.
+
+    Under tensor parallelism (`shard`) q/k/v are column-parallel and `out`
+    row-parallel: the rank attends over its heads [h0, h0 + num_heads) of
+    `h_total`, and the attention dropout keys on the global head.  In a
+    data-parallel forward the batch offset of the rank's rows is folded
+    into that seed (`_attention_seed`)."""
 
     def __init__(self, d: int, num_heads: int, use_flash: bool = False,
                  dtype: torch.dtype = torch.float32, lora_rank: int = 0,
@@ -552,6 +622,7 @@ class Attention(nn.Module):
         if d % num_heads:
             raise ValueError(f"d={d} is not a multiple of heads={num_heads}")
         self.num_heads = num_heads
+        self.h_total, self.h0 = num_heads, 0
         self.use_flash = use_flash
         self.dtype = dtype
         self.lora_rank = lora_rank
@@ -568,16 +639,47 @@ class Attention(nn.Module):
                                             ("query", "key", "value"))
         self.out = Dense(d, d, dtype)
 
+    def _base(self, name: str) -> Dense:
+        mod = getattr(self, name)
+        return mod.base if isinstance(mod, LoRADense) else mod
+
+    def query_parallel(self) -> bool:
+        """Whether parallel/mesh.shard_model made q column-parallel."""
+        return self._base("query").parallel == "col"
+
+    def shard(self, axis: Axis) -> None:
+        """Attend over this rank's heads of the model axis; q/k/v and out
+        are sharded by shard_model (their Dense.shard)."""
+        local = self.h_total // axis.size
+        self.num_heads, self.h0 = local, axis.rank * local
+
+    def _attention_seed(self, rng, b: int, lq: int, lk_pad: int) -> int:
+        """The attention dropout's seed: a fresh draw, with a data-parallel
+        rank's batch offset (rank * b rows of h_total*lq*lk_pad counters)
+        folded in."""
+        seed = draw_seed(rng)
+        data = data_axis(rng)
+        if data is None:
+            return seed
+        return fold_seed(seed, data.rank * b * self.h_total * lq * lk_pad)
+
     def forward(self, query, key, value,
                 pad_mask: Optional[torch.Tensor] = None, *,
                 deterministic: bool = True,
                 rng: Optional[torch.Generator] = None,
                 lora_split: int = 0,
                 remat: Optional[RematState] = None) -> torch.Tensor:
-        b, l, d = query.shape
+        b, l, _ = query.shape
         restoring = remat is not None and remat.restoring
+        if (restoring and self.query_parallel()
+                and any(remat.bits(n) for n in ("q", "k", "v", "qkv"))):
+            raise NotImplementedError("the quantised remat saves do not "
+                                      "take a tensor-parallel layer")
         h = self.num_heads
-        head_dim = d // h
+        head_dim = self._base("query").weight.shape[0] // h
+        # the head shard's arguments, passed only on a shard
+        heads = ({} if self.h_total == h else
+                 dict(h_total=self.h_total, h0=self.h0))
         rate = self.dropout if not deterministic else 0.0
         self_attn = query is key and key is value
         if (self.use_flash and self_attn and self.lora_rank == 0
@@ -587,17 +689,19 @@ class Attention(nn.Module):
                                    self.value.weight.t(), h, hb)
             b_g = pack_qkv_weights(self.query.bias, self.key.bias,
                                    self.value.bias, h, hb)
-            xw = (query.to(self.dtype), w_g.t().to(self.dtype),
-                  b_g.to(self.dtype))
+            xw = (copy_to_model(query.to(self.dtype), self.query.axis)
+                  if self.query_parallel() else query.to(self.dtype),
+                  w_g.t().to(self.dtype), b_g.to(self.dtype))
             if restoring and remat.bits("qkv"):
                 qkv = remat.restore("qkv", *xw)
             else:
                 qkv = F.linear(*xw)
                 if remat is not None:
                     qkv = remat.save("qkv", qkv)
-            seed = draw_seed(rng) if rate > 0.0 else None
+            seed = (self._attention_seed(rng, b, l, l) if rate > 0.0
+                    else None)
             return self.out(flash_attention_packed(qkv, pad_mask, seed, h,
-                                                   hb, rate))
+                                                   hb, rate, **heads))
 
         def project(mod, x, name):
             lora = isinstance(mod, LoRADense)
@@ -617,19 +721,25 @@ class Attention(nn.Module):
         v = project(self.value, value, "v")
         if remat is not None and not restoring:
             q, k, v = (remat.save(n, t) for n, t in zip("qkv", (q, k, v)))
-        seed = draw_seed(rng) if rate > 0.0 else None
-        if self.use_flash and _flash_ok(q, head_dim, rate):
-            out = flash_attention(q, k, v, pad_mask, seed, h, rate)
+        flash = self.use_flash and _flash_ok(q, head_dim, rate)
+        seed = (self._attention_seed(rng, b, q.shape[1],
+                                     _lk_padded(k.shape[1]))
+                if rate > 0.0 else None)
+        if flash:
+            out = flash_attention(q, k, v, pad_mask, seed, h, rate, **heads)
         else:
             split = lambda x: x.reshape(b, -1, h, head_dim)
             out = _dot_product_attention(split(q), split(k), split(v),
-                                         pad_mask, self.dtype, rate, seed
-                                         ).reshape(b, l, d)
+                                         pad_mask, self.dtype, rate, seed,
+                                         **heads).reshape(b, l, -1)
         return self.out(out)
 
 
 class Mlp(nn.Module):
-    """linear -> act -> dropout -> linear (-> output dropout)."""
+    """linear -> act -> dropout -> linear (-> output dropout).  Under tensor
+    parallelism (`shard`: fc1 column-, fc2 row-parallel) the inner dropout
+    runs on the rank's column shard of the hidden units and keys on their
+    global columns."""
 
     def __init__(self, in_features: int, hidden: int, out: int,
                  activation: Callable = F.relu,
@@ -641,6 +751,11 @@ class Mlp(nn.Module):
         self.activation = activation
         self.dropout = dropout
         self.out_dropout = out_dropout
+        self.cols: Optional[Tuple[int, int]] = None
+
+    def shard(self, axis: Axis) -> None:
+        local = self.fc1.weight.shape[0]
+        self.cols = (local * axis.size, local * axis.rank)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 rng: Optional[torch.Generator] = None,
@@ -648,6 +763,9 @@ class Mlp(nn.Module):
         """`remat`: as Attention's, for the fc1 preactivation."""
         fc1 = self.fc1
         if remat is not None and remat.restoring and remat.bits("fc1"):
+            if fc1.parallel is not None:
+                raise NotImplementedError("the quantised remat saves do not "
+                                          "take a tensor-parallel layer")
             x = remat.restore("fc1", x.to(fc1.dtype),
                               fc1.weight.to(fc1.dtype),
                               fc1.bias.to(fc1.dtype))
@@ -655,7 +773,8 @@ class Mlp(nn.Module):
             x = fc1(x)
             if remat is not None:
                 x = remat.save("fc1", x)
-        x = dropout(self.activation(x), self.dropout, deterministic, rng)
+        x = dropout(self.activation(x), self.dropout, deterministic, rng,
+                    self.cols)
         return dropout(self.fc2(x), self.out_dropout, deterministic, rng)
 
 
@@ -748,16 +867,25 @@ class BatchNorm1D(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor,
-                use_running_average: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_running_average: bool = True,
+                data: Optional[Axis] = None) -> torch.Tensor:
+        """`data`: the mesh's data axis of a data-parallel forward, whose
+        batch statistics then span the global micro-batch (sums over data,
+        with their gradients), so every rank moves the running ones alike."""
         x32 = x.float()
         if use_running_average:
             mean, var = self.mean, self.var
+        elif data is not None:
+            rows = x32.reshape(-1, x32.shape[-1])
+            n = rows.shape[0] * data.size
+            mean = sum_over_data(rows.sum(0), data) / n
+            var = sum_over_data((rows - mean).square().sum(0), data) / n
         else:
             rows = x32.reshape(-1, x32.shape[-1])
             n = rows.shape[0]
             mean = rows.mean(0)
             var = rows.var(0, unbiased=False)
+        if not use_running_average:
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(1 - m).add_(m * mean)

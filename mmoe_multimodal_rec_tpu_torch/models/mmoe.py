@@ -16,7 +16,10 @@ every dropout site draws its seed from `gen` in call order (user expert,
 item expert (or the shared text pass), image expert, cross expert, the two fuse experts, the HoME
 wrappers, the head).  The HoME wrappers' BatchNorms use the batch's
 statistics, and move their running ones, unless `bn_use_running_average`,
-which defaults to `deterministic`.
+which defaults to `deterministic`.  In a data-parallel training step
+(parallel/mesh.py) the batch is the rank's share of the global one and
+`rng` a parallel.mesh.DataShard: the sites then act on the global
+micro-batch (models/layers.data_axis).
 """
 from __future__ import annotations
 

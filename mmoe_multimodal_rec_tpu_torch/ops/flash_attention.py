@@ -28,7 +28,11 @@ over the counter ((b*H + h)*Lq + q)*Lk_pad + k (Lk_pad = Lk rounded up to
 masks equal JAX's bit for bit.  `dropout_keep_mask` writes it out as a bool
 [b, h, lq, lk] tensor (the plain version `dropout_keep_mask_reference` on
 the CPU, csrc/dropout_keep_mask.cu on a CUDA device); the plain versions
-above use the plain mask.
+above use the plain mask.  Under tensor parallelism a rank holds heads
+[h0, h0 + H) of H_total (`h_total`, `h0` of every function here): the
+counter then takes the global head, b*H_total + h0 + h, so the rank's mask
+is that slice of the whole call's; a data-parallel rank's batch offset is
+folded into the seed by the caller (ops/lora_dropout.fold_seed).
 """
 from __future__ import annotations
 
@@ -89,17 +93,37 @@ def _threshold(rate: float) -> int:
     return int(min(max(rate, 0.0), 1.0) * 4294967295.0)
 
 
+def _head_range(n_heads: int, h_total: Optional[int], h0: int):
+    """(H_total, h0) of a head shard: heads [h0, h0 + n_heads) of h_total
+    (default: all of them), as the dropout counter strides over them."""
+    h_total = n_heads if h_total is None else h_total
+    if h0 < 0 or h0 + n_heads > h_total:
+        raise ValueError(f"heads [{h0}, {h0 + n_heads}) are not a shard of "
+                         f"{h_total}")
+    return h_total, h0
+
+
+def _shard_args(heads, n_heads: int) -> tuple:
+    """The (h_total, h0) arguments to pass on: none for all the heads, so an
+    unsharded call keeps the signature it had before head shards."""
+    return () if heads == (n_heads, 0) else tuple(heads)
+
+
 def dropout_keep_mask_reference(seed: int, b: int, h: int, lq: int, lk: int,
                                 rate: float, lk_padded: Optional[int] = None,
-                                device="cpu") -> torch.Tensor:
+                                *, device, h_total: Optional[int] = None,
+                                h0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of `dropout_keep_mask`: the bool keep mask
     [b, h, lq, lk] of the portable stream, equal to JAX
     `dropout_keep_mask(..., interpret=True)` (the counter strides over the
-    key length rounded up to 128, as there)."""
+    key length rounded up to 128, as there).  A head shard (heads
+    [h0, h0 + h) of h_total) keys on the global head: its mask is that
+    slice of the full one."""
+    h_total, h0 = _head_range(h, h_total, h0)
     lk_p = lk_padded or (-(-lk // _LANE) * _LANE)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-    idx = (((ar(b)[:, None] * h + ar(h)[None, :]) * lq)[..., None, None]
-           + ar(lq)[:, None]) * lk_p + ar(lk)[None, :]
+    idx = (((ar(b)[:, None] * h_total + h0 + ar(h)[None, :])
+            * lq)[..., None, None] + ar(lq)[:, None]) * lk_p + ar(lk)[None, :]
     return _hash_bits(seed, idx & _M32) >= _threshold(rate)
 
 
@@ -120,8 +144,9 @@ def flash_attention_packed_reference(qkv: torch.Tensor,
                                      pad_mask: Optional[torch.Tensor] = None,
                                      seed: Optional[int] = None,
                                      n_heads: int = 12, hb: int = 6,
-                                     dropout_rate: float = 0.0
-                                     ) -> torch.Tensor:
+                                     dropout_rate: float = 0.0,
+                                     h_total: Optional[int] = None,
+                                     h0: int = 0) -> torch.Tensor:
     """Plain PyTorch version: unpack the heads, fp32 softmax with padded
     keys at -1e9, the same hash keep mask, output in the input dtype."""
     _check(qkv, n_heads, hb, dropout_rate)
@@ -136,7 +161,8 @@ def flash_attention_packed_reference(qkv: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0:
         keep = dropout_keep_mask_reference(seed or 0, b, n_heads, l, l,
-                                           dropout_rate, device=qkv.device)
+                                           dropout_rate, l, device=qkv.device,
+                                           h_total=h_total, h0=h0)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v)
     return out.reshape(b, l, d).to(qkv.dtype)
@@ -170,22 +196,27 @@ def _probs(q, k, pad_mask, n_heads: int) -> torch.Tensor:
 
 def flash_attention_reference(q, k, v, pad_mask=None,
                               seed: Optional[int] = None, n_heads: int = 12,
-                              dropout_rate: float = 0.0) -> torch.Tensor:
+                              dropout_rate: float = 0.0,
+                              h_total: Optional[int] = None,
+                              h0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of `flash_attention`'s forward: fp32 softmax
-    with padded keys at -1e9, the hash keep mask, output in q's dtype."""
+    with padded keys at -1e9, the hash keep mask (q, k, v holding heads
+    [h0, h0 + n_heads) of h_total), output in q's dtype."""
     _check_split(q, k, v, n_heads)
     b, l, d = q.shape
     p = _probs(q, k, pad_mask, n_heads)
     if dropout_rate > 0.0:
         keep = dropout_keep_mask_reference(seed or 0, b, n_heads, l, l,
-                                           dropout_rate, device=q.device)
+                                           dropout_rate, device=q.device,
+                                           h_total=h_total, h0=h0)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     vh = v.float().reshape(b, l, n_heads, d // n_heads)
     return torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, l, d).to(q.dtype)
 
 
 def _bwd_heads(qh, kh, vh, gh, pad_mask, seed: Optional[int],
-               dropout_rate: float, dt):
+               dropout_rate: float, dt, lk_pad: int,
+               h_total: Optional[int] = None, h0: int = 0):
     """The backward of one self-attention over head-split fp32 q, k, v, dO
     [B, L, H, dh], written out as the JAX kernel's `_head_bwd`; (dq, dk, dv)
     in fp32, rounded as the kernel rounds its bf16 operands (dt)."""
@@ -199,7 +230,9 @@ def _bwd_heads(qh, kh, vh, gh, pad_mask, seed: Optional[int],
     p_drop = p
     if dropout_rate > 0.0:
         keep = dropout_keep_mask_reference(seed or 0, b, n_heads, l, l,
-                                           dropout_rate, device=qh.device)
+                                           dropout_rate, lk_pad,
+                                           device=qh.device, h_total=h_total,
+                                           h0=h0)
         p_drop = torch.where(keep, p, 0.0)
         dp = torch.where(keep, dp, 0.0)
     dv = torch.einsum("bhqk,bqhd->bkhd", p_drop.to(dt).float(), gh) * inv
@@ -212,7 +245,8 @@ def _bwd_heads(qh, kh, vh, gh, pad_mask, seed: Optional[int],
 
 def flash_attention_bwd_reference(q, k, v, pad_mask, seed: Optional[int],
                                   dout, n_heads: int = 12,
-                                  dropout_rate: float = 0.0):
+                                  dropout_rate: float = 0.0,
+                                  h_total: Optional[int] = None, h0: int = 0):
     """Plain PyTorch version of `flash_attention`'s backward, written out as
     the JAX kernel's `_head_bwd`: p the pre-dropout softmax,
     dv = (p*keep)^T dO / (1-r) with p*keep cast to the input dtype,
@@ -223,14 +257,16 @@ def flash_attention_bwd_reference(q, k, v, pad_mask, seed: Optional[int],
     b, l, d = q.shape
     heads = (x.float().reshape(b, l, n_heads, d // n_heads)
              for x in (q, k, v, dout))
-    grads = _bwd_heads(*heads, pad_mask, seed, dropout_rate, q.dtype)
+    grads = _bwd_heads(*heads, pad_mask, seed, dropout_rate, q.dtype,
+                       _lk_padded(l), h_total, h0)
     return tuple(x.reshape(b, l, d).to(q.dtype) for x in grads)
 
 
 def flash_attention_packed_bwd_reference(qkv, pad_mask, seed: Optional[int],
                                          dout, n_heads: int = 12, hb: int = 6,
-                                         dropout_rate: float = 0.0
-                                         ) -> torch.Tensor:
+                                         dropout_rate: float = 0.0,
+                                         h_total: Optional[int] = None,
+                                         h0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of `flash_attention_packed`'s backward (JAX
     `_bwd_kernel_packed`, the same `_head_bwd` math as
     `flash_attention_bwd_reference`): dqkv [B, L, 3D] in qkv's
@@ -242,7 +278,8 @@ def flash_attention_packed_bwd_reference(qkv, pad_mask, seed: Optional[int],
     x = qkv.float().reshape(b, l, n_heads // hb, 3, hb, dh)
     q, k, v = (x[:, :, :, i].reshape(b, l, n_heads, dh) for i in range(3))
     gh = dout.float().reshape(b, l, n_heads, dh)
-    grads = _bwd_heads(q, k, v, gh, pad_mask, seed, dropout_rate, qkv.dtype)
+    grads = _bwd_heads(q, k, v, gh, pad_mask, seed, dropout_rate, qkv.dtype,
+                       l, h_total, h0)
     return pack_qkv_weights(*(g.reshape(b, l, d) for g in grads), n_heads,
                             hb).to(qkv.dtype)
 
@@ -255,10 +292,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-_FWD_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _U, _U, _F, _I, _P]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _U, _U, _F, _I, _P]
-_PACKED_BWD_ARGTYPES = [_P] * 6 + [_I] * 7 + [_F, _U, _U, _F, _I, _P]
-_KEEP_MASK_ARGTYPES = [_P, ctypes.c_longlong, _I, _I, _U, _U, _P]
+_FWD_ARGTYPES = [_P] * 6 + [_I] * 11 + [_F, _U, _U, _F, _I, _P]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 8 + [_F, _U, _U, _F, _I, _P]
+_PACKED_BWD_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _U, _U, _F, _I, _P]
+_KEEP_MASK_ARGTYPES = [_P, ctypes.c_longlong] + [_I] * 6 + [_U, _U, _P]
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -331,7 +368,9 @@ def _launch(what: str, device: torch.device, fn, *args) -> None:
 
 def _launch_fwd(q, k_ptr: int, v_ptr: int, pad, out, stats, n_heads: int,
                 hb: int, row_stride: int, group_stride: int, lk_pad: int,
-                seed, rate: float) -> None:
+                seed, rate: float, heads) -> None:
+    """heads: (H_total, h0), the dropout counter's head stride and first
+    head (the _*_fwd_cuda callers default it to all heads)."""
     b, l = q.shape[:2]
     dh = out.shape[-1] // n_heads
     fn = cuda_lib.function("flash_attention_fwd", "mmoe_flash_attention_fwd",
@@ -340,7 +379,7 @@ def _launch_fwd(q, k_ptr: int, v_ptr: int, pad, out, stats, n_heads: int,
             v_ptr, None if pad is None else pad.data_ptr(), out.data_ptr(),
             None if stats is None else stats.data_ptr(),
             _DTYPE_CODES[q.dtype], b, l, n_heads, hb, dh, row_stride,
-            group_stride, lk_pad, 1.0 / math.sqrt(dh),
+            group_stride, lk_pad, *heads, 1.0 / math.sqrt(dh),
             *_dropout_args(seed, rate))
 
 
@@ -349,7 +388,7 @@ def _launch_fwd(q, k_ptr: int, v_ptr: int, pad, out, stats, n_heads: int,
 # ---------------------------------------------------------------------------
 
 def _packed_fwd_cuda(qkv, pad_mask, seed, n_heads: int, hb: int,
-                     rate: float, want_stats: bool):
+                     rate: float, want_stats: bool, heads=None):
     _check_cuda("flash_attention_packed", qkv)
     b, l, d3 = qkv.shape
     d = d3 // 3
@@ -360,12 +399,13 @@ def _packed_fwd_cuda(qkv, pad_mask, seed, n_heads: int, hb: int,
                         f"bfloat16, got {qkv.dtype}")
     pad = _pad_arg(pad_mask, b, l, qkv.device)
     w = hb * dh * qkv.element_size()
+    heads = heads or (n_heads, 0)
     out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
-    stats = (torch.empty((b, n_heads, l, 2), dtype=torch.float32,
+    stats = (torch.empty((b, heads[0], l, 2), dtype=torch.float32,
                          device=qkv.device) if want_stats else None)
     # the packed counter strides over L itself (dropout needs L % 128 == 0)
     _launch_fwd(qkv, qkv.data_ptr() + w, qkv.data_ptr() + 2 * w, pad, out,
-                stats, n_heads, hb, d3, 3 * hb * dh, l, seed, rate)
+                stats, n_heads, hb, d3, 3 * hb * dh, l, seed, rate, heads)
     flash_attention_packed.launches += 1
     flash_attention_packed.stats_launches += want_stats
     return out, stats
@@ -374,18 +414,21 @@ def _packed_fwd_cuda(qkv, pad_mask, seed, n_heads: int, hb: int,
 def flash_attention_packed_bwd(qkv, pad_mask, seed: Optional[int], dout,
                                n_heads: int = 12, hb: int = 6,
                                dropout_rate: float = 0.0,
-                               stats: Optional[torch.Tensor] = None
+                               stats: Optional[torch.Tensor] = None,
+                               h_total: Optional[int] = None, h0: int = 0
                                ) -> torch.Tensor:
     """dqkv [B, L, 3D] of `flash_attention_packed`, in qkv's packed layout,
-    for the cotangent dout [B, L, D].
+    for the cotangent dout [B, L, D]; h_total, h0 as the forward's.
 
     CPU tensors: `flash_attention_packed_bwd_reference`.  CUDA tensors: the
     Hopper kernel (bf16 only), which also needs the forward kernel's
     softmax statistics `stats` [B, H, L, 2] (m, l)."""
     _check(qkv, n_heads, hb, dropout_rate)
+    heads = _head_range(n_heads, h_total, h0)
     if qkv.device.type == "cpu":
-        return flash_attention_packed_bwd_reference(qkv, pad_mask, seed, dout,
-                                                    n_heads, hb, dropout_rate)
+        return flash_attention_packed_bwd_reference(
+            qkv, pad_mask, seed, dout, n_heads, hb, dropout_rate,
+            *_shard_args(heads, n_heads))
     if stats is None:
         raise ValueError("the CUDA backward needs the forward kernel's "
                          "stats")
@@ -402,11 +445,11 @@ def flash_attention_packed_bwd(qkv, pad_mask, seed: Optional[int], dout,
         raise ValueError(f"dout must be a contiguous {qkv.dtype} [{b}, {l}, "
                          f"{d}] on {qkv.device}")
     if (stats.dtype != torch.float32 or not stats.is_contiguous()
-            or tuple(stats.shape) != (b, n_heads, l, 2)):
-        raise ValueError(f"stats must be a contiguous fp32 [{b}, {n_heads}, "
-                         f"{l}, 2]")
+            or tuple(stats.shape) != (b, heads[0], l, 2)):
+        raise ValueError(f"stats must be a contiguous fp32 [{b}, "
+                         f"{heads[0]}, {l}, 2]")
     pad = _pad_arg(pad_mask, b, l, qkv.device)
-    delta = torch.empty((b, n_heads, l), dtype=torch.float32,
+    delta = torch.empty((b, heads[0], l), dtype=torch.float32,
                         device=qkv.device)
     dqkv = torch.empty_like(qkv)
     fn = cuda_lib.function("flash_attention_bwd",
@@ -415,7 +458,7 @@ def flash_attention_packed_bwd(qkv, pad_mask, seed: Optional[int], dout,
     _launch("flash_attention_packed_bwd", qkv.device, fn, qkv.data_ptr(),
             None if pad is None else pad.data_ptr(), dout.data_ptr(),
             stats.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
-            _DTYPE_CODES[qkv.dtype], b, l, n_heads, hb, dh, l,
+            _DTYPE_CODES[qkv.dtype], b, l, n_heads, hb, dh, l, *heads,
             1.0 / math.sqrt(dh), *_dropout_args(seed, dropout_rate))
     flash_attention_packed_bwd.launches += 1
     return dqkv
@@ -427,18 +470,19 @@ flash_attention_packed_bwd.launches = 0
 class _FlashAttentionPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, pad_mask, seed, n_heads, hb, dropout_rate,
-                want_grad):
+                want_grad, heads):
         stats = None
         if qkv.device.type == "cpu":
-            out = flash_attention_packed_reference(qkv, pad_mask, seed,
-                                                   n_heads, hb, dropout_rate)
+            out = flash_attention_packed_reference(
+                qkv, pad_mask, seed, n_heads, hb, dropout_rate,
+                *_shard_args(heads, n_heads))
         else:
             out, stats = _packed_fwd_cuda(qkv, pad_mask, seed, n_heads, hb,
-                                          dropout_rate, want_grad)
+                                          dropout_rate, want_grad, heads)
         if want_grad:
             ctx.save_for_backward(qkv, pad_mask, stats)
-        ctx.seed, ctx.n_heads, ctx.hb, ctx.rate = (seed, n_heads, hb,
-                                                   dropout_rate)
+        ctx.seed, ctx.n_heads, ctx.hb, ctx.rate, ctx.heads = (
+            seed, n_heads, hb, dropout_rate, heads)
         return out
 
     @staticmethod
@@ -446,14 +490,17 @@ class _FlashAttentionPacked(torch.autograd.Function):
         qkv, pad_mask, stats = ctx.saved_tensors
         dqkv = flash_attention_packed_bwd(qkv, pad_mask, ctx.seed,
                                           dout.contiguous(), ctx.n_heads,
-                                          ctx.hb, ctx.rate, stats)
-        return dqkv, None, None, None, None, None, None
+                                          ctx.hb, ctx.rate, stats,
+                                          *_shard_args(ctx.heads,
+                                                       ctx.n_heads))
+        return dqkv, None, None, None, None, None, None, None
 
 
 def flash_attention_packed(qkv: torch.Tensor,
                            pad_mask: Optional[torch.Tensor] = None,
                            seed: Optional[int] = None, n_heads: int = 12,
-                           hb: int = 6, dropout_rate: float = 0.0
+                           hb: int = 6, dropout_rate: float = 0.0,
+                           h_total: Optional[int] = None, h0: int = 0
                            ) -> torch.Tensor:
     """Self-attention over a group-interleaved qkv [B, L, 3D] -> [B, L, D],
     and its backward (dqkv in the same packed layout).
@@ -465,13 +512,16 @@ def flash_attention_packed(qkv: torch.Tensor,
     bf16).  The forward kernel stores the softmax statistics for the
     backward only when qkv needs a gradient: serving runs the instantiation
     without that store (`flash_attention_packed.stats_launches` counts the
-    other)."""
+    other).  A tensor-parallel shard holds heads [h0, h0 + n_heads) of
+    h_total (default: all): its dropout keys on the global head, so its
+    mask is that slice of the full call's."""
     _check(qkv, n_heads, hb, dropout_rate)
+    heads = _head_range(n_heads, h_total, h0)
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {qkv.device}")
     want_grad = qkv.requires_grad and torch.is_grad_enabled()
     return _FlashAttentionPacked.apply(qkv, pad_mask, seed, n_heads, hb,
-                                       float(dropout_rate), want_grad)
+                                       float(dropout_rate), want_grad, heads)
 
 
 flash_attention_packed.launches = 0
@@ -479,32 +529,38 @@ flash_attention_packed.stats_launches = 0
 
 
 def _flash_fwd_cuda(q, k, v, pad_mask, seed, n_heads: int, rate: float,
-                    want_stats: bool):
+                    want_stats: bool, heads=None):
     _check_cuda("flash_attention", q, k, v)
     b, l, d = q.shape
     _check_head_dim(d // n_heads)
     pad = _pad_arg(pad_mask, b, l, q.device)
+    heads = heads or (n_heads, 0)
     out = torch.empty_like(q)
-    stats = (torch.empty((b, n_heads, l, 2), dtype=torch.float32,
+    stats = (torch.empty((b, heads[0], l, 2), dtype=torch.float32,
                          device=q.device) if want_stats else None)
     _launch_fwd(q, k.data_ptr(), v.data_ptr(), pad, out, stats, n_heads,
-                n_heads, d, 0, _lk_padded(l), seed, rate)
+                n_heads, d, 0, _lk_padded(l), seed, rate, heads)
     flash_attention.launches += 1
     return out, stats
 
 
 def flash_attention_bwd(q, k, v, pad_mask, seed: Optional[int], dout,
                         n_heads: int = 12, dropout_rate: float = 0.0,
-                        stats: Optional[torch.Tensor] = None):
-    """(dq, dk, dv) of `flash_attention` for the cotangent dout [B, L, D].
+                        stats: Optional[torch.Tensor] = None,
+                        h_total: Optional[int] = None, h0: int = 0):
+    """(dq, dk, dv) of `flash_attention` for the cotangent dout [B, L, D];
+    h_total, h0 as the forward's (whose statistics are [B, h_total, L, 2]:
+    a head shard's rows of the global heads').
 
     CPU tensors: `flash_attention_bwd_reference`.  CUDA tensors: the Hopper
     kernel, which also needs the forward kernel's softmax statistics
     `stats` [B, H, L, 2] (m, l)."""
     _check_split(q, k, v, n_heads)
+    heads = _head_range(n_heads, h_total, h0)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, pad_mask, seed, dout,
-                                             n_heads, dropout_rate)
+                                             n_heads, dropout_rate,
+                                             *_shard_args(heads, n_heads))
     if stats is None:
         raise ValueError("the CUDA backward needs the forward kernel's "
                          "stats")
@@ -512,11 +568,12 @@ def flash_attention_bwd(q, k, v, pad_mask, seed: Optional[int], dout,
     b, l, d = q.shape
     _check_head_dim(d // n_heads)
     if (stats.dtype != torch.float32 or not stats.is_contiguous()
-            or tuple(stats.shape) != (b, n_heads, l, 2)):
-        raise ValueError(f"stats must be a contiguous fp32 [{b}, {n_heads}, "
-                         f"{l}, 2]")
+            or tuple(stats.shape) != (b, heads[0], l, 2)):
+        raise ValueError(f"stats must be a contiguous fp32 [{b}, "
+                         f"{heads[0]}, {l}, 2]")
     pad = _pad_arg(pad_mask, b, l, q.device)
-    delta = torch.empty((b, n_heads, l), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, heads[0], l), dtype=torch.float32,
+                        device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dh = d // n_heads
     fn = cuda_lib.function("flash_attention_bwd", "mmoe_flash_attention_bwd",
@@ -525,7 +582,7 @@ def flash_attention_bwd(q, k, v, pad_mask, seed: Optional[int], dout,
             v.data_ptr(), None if pad is None else pad.data_ptr(),
             dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, l, n_heads, dh, _lk_padded(l),
+            _DTYPE_CODES[q.dtype], b, l, n_heads, dh, _lk_padded(l), *heads,
             1.0 / math.sqrt(dh), *_dropout_args(seed, dropout_rate))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -536,17 +593,19 @@ flash_attention_bwd.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, pad_mask, seed, n_heads, dropout_rate):
+    def forward(ctx, q, k, v, pad_mask, seed, n_heads, dropout_rate, heads):
         stats = None
         if q.device.type == "cpu":
             out = flash_attention_reference(q, k, v, pad_mask, seed, n_heads,
-                                            dropout_rate)
+                                            dropout_rate,
+                                            *_shard_args(heads, n_heads))
         else:
             out, stats = _flash_fwd_cuda(q, k, v, pad_mask, seed, n_heads,
                                          dropout_rate,
-                                         any(ctx.needs_input_grad[:3]))
+                                         any(ctx.needs_input_grad[:3]), heads)
         ctx.save_for_backward(q, k, v, pad_mask, stats)
-        ctx.seed, ctx.n_heads, ctx.rate = seed, n_heads, dropout_rate
+        ctx.seed, ctx.n_heads, ctx.rate, ctx.heads = (seed, n_heads,
+                                                      dropout_rate, heads)
         return out
 
     @staticmethod
@@ -554,43 +613,50 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, pad_mask, stats = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, pad_mask, ctx.seed,
                                          dout.contiguous(), ctx.n_heads,
-                                         ctx.rate, stats)
-        return dq, dk, dv, None, None, None, None
+                                         ctx.rate, stats,
+                                         *_shard_args(ctx.heads, ctx.n_heads))
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     pad_mask: Optional[torch.Tensor] = None,
                     seed: Optional[int] = None, n_heads: int = 12,
-                    dropout_rate: float = 0.0) -> torch.Tensor:
+                    dropout_rate: float = 0.0, h_total: Optional[int] = None,
+                    h0: int = 0) -> torch.Tensor:
     """Self-attention over split q, k, v [B, L, D] -> [B, L, D], with
     attention-weight dropout keyed on `seed` (ignored at rate 0), and its
     backward.  CPU tensors: the plain versions.  CUDA tensors: the Hopper
     kernels, or an exception for what they do not take (see
-    `flash_attention_packed`)."""
+    `flash_attention_packed`, also for h_total and h0)."""
     _check_split(q, k, v, n_heads)
+    heads = _head_range(n_heads, h_total, h0)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
     return _FlashAttention.apply(q, k, v, pad_mask, seed, n_heads,
-                                 float(dropout_rate))
+                                 float(dropout_rate), heads)
 
 
 flash_attention.launches = 0
 
 
 def dropout_keep_mask(seed: int, b: int, h: int, lq: int, lk: int,
-                      rate: float, lk_padded: Optional[int] = None,
-                      device="cpu") -> torch.Tensor:
+                      rate: float, lk_padded: Optional[int] = None, *,
+                      device, h_total: Optional[int] = None,
+                      h0: int = 0) -> torch.Tensor:
     """Bool keep mask [b, h, lq, lk] of the portable stream (JAX
     `dropout_keep_mask(..., interpret=True)`), made on `device`: the CPU
     takes `dropout_keep_mask_reference`; a CUDA device launches the Hopper
     kernel (csrc/dropout_keep_mask.cu), which writes the same bits, or
     raises.  The short attentions' weight dropout draws it in every
-    training forward (models/layers._dot_product_attention)."""
+    training forward (models/layers._dot_product_attention).  h_total, h0:
+    the h heads are [h0, h0 + h) of h_total (a tensor-parallel shard)."""
+    h_total, h0 = _head_range(h, h_total, h0)
     if not isinstance(device, torch.device):
         device = torch.device(device)
     if device.type == "cpu":
         return dropout_keep_mask_reference(seed, b, h, lq, lk, rate,
-                                           lk_padded=lk_padded, device=device)
+                                           lk_padded=lk_padded, device=device,
+                                           h_total=h_total, h0=h0)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     out = torch.empty((b, h, lq, lk), dtype=torch.bool, device=device)
@@ -599,7 +665,8 @@ def dropout_keep_mask(seed: int, b: int, h: int, lq: int, lk: int,
     fn = cuda_lib.function("dropout_keep_mask", "mmoe_dropout_keep_mask",
                            _KEEP_MASK_ARGTYPES)
     _launch("dropout_keep_mask", out.device, fn, out.data_ptr(), b * h * lq,
-            lk, lk_padded or _lk_padded(lk), seed & _M32, _threshold(rate))
+            lk, lk_padded or _lk_padded(lk), h, lq, h_total, h0, seed & _M32,
+            _threshold(rate))
     dropout_keep_mask.launches += 1
     return out
 

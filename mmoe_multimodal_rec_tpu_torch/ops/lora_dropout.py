@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -51,13 +52,33 @@ def _i32(u: int) -> int:
     return u - (1 << 32) if u >= (1 << 31) else u
 
 
-def hash_keep_mask(shape, seed: int, rate: float, device) -> torch.Tensor:
+def fold_seed(seed: int, offset: int) -> int:
+    """The seed whose hash of index i is `seed`'s hash of index offset + i.
+    Every mask in the port hashes x = idx * 2654435761 + seed (mod 2^32),
+    so a shard whose flat indices start at `offset` of the global array
+    draws the global array's mask on the folded seed (a uint32)."""
+    return (seed + offset * 2654435761) & _M32
+
+
+def hash_keep_mask(shape, seed: int, rate: float, device,
+                   width: Optional[int] = None,
+                   col0: int = 0) -> torch.Tensor:
     """HashDropout's keep mask: the murmur3-finalizer hash of the flat
     index (row*D + col of reshape(-1, D)), keep = bits >= uint32(rate *
-    (2^32 - 1)).  Computed in place in int32, whose products wrap mod 2^32
-    as the uint32 ones do; shifts are masked to be logical and the final
-    compare is made unsigned by flipping the sign bit."""
-    x = torch.arange(math.prod(shape), dtype=torch.int32, device=device)
+    (2^32 - 1)).  A column shard of rows `width` wide whose columns start
+    at `col0` keys on row*width + col0 + col instead.  Computed in place in
+    int32, whose products wrap mod 2^32 as the uint32 ones do; shifts are
+    masked to be logical and the final compare is made unsigned by
+    flipping the sign bit."""
+    if width is None:
+        x = torch.arange(math.prod(shape), dtype=torch.int32, device=device)
+    else:
+        d = shape[-1]
+        rows = torch.arange(math.prod(shape) // d, dtype=torch.int32,
+                            device=device)
+        x = (rows[:, None] * width
+             + torch.arange(col0, col0 + d, dtype=torch.int32,
+                            device=device)).reshape(-1)
     x.mul_(_i32(2654435761)).add_(_i32(seed & _M32))
     x.bitwise_xor_((x >> 16) & 0xFFFF)
     x.mul_(_i32(0x85EBCA6B))
@@ -261,7 +282,7 @@ def lora_dropout_matmul(h: torch.Tensor, a: torch.Tensor, seed: int,
                         rate: float = 0.1) -> torch.Tensor:
     """`(keep(seed) ⊙ h / (1-rate)) @ a` without materializing the dropped
     `h`, and its backward.  h [M, D], a [D, r] of one dtype, seed an int32
-    (JAX's draw); returns [M, r] in h's dtype.  Gate call sites with
+    (JAX's draw) or a uint32 `fold_seed` gives a row shard; returns [M, r] in h's dtype.  Gate call sites with
     `lora_fused_ok`."""
     _check("lora_dropout_matmul", h, a)
     _on_device(h)

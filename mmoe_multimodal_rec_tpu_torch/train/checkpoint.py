@@ -20,6 +20,12 @@ containers only.  `restore` resumes a Trainer; `restore_model` loads the
 weights and BatchNorm statistics into a bare model for eval and serving,
 with no optimizer.  A directory the JAX trainer wrote (orbax) is refused
 with `check_not_orbax`: reading orbax without orbax needs a design first.
+
+A Trainer on a mesh (parallel/mesh.py) saves the one-process layout: every
+rank takes part in gathering the model shards of the parameters and of
+the AdamW state, rank 0 writes, and every rank waits for the write; each
+rank restores its own shards from it, so a checkpoint restores on any
+mesh, one process included.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import re
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 _PAYLOAD = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -129,15 +136,20 @@ class CheckpointManager:
 
     def save(self, step: int, trainer, extra: Optional[Dict] = None) -> None:
         """Write `trainer`'s state as checkpoint `step` (synchronously)."""
-        frozen = trainer.frozen
+        frozen = trainer.frozen_state()
+        payload = trainer.state_dict()
+        if trainer.is_chief:
+            self._write(step, frozen, payload, extra)
+        if trainer.mesh is not None and dist.is_initialized():
+            dist.barrier()
+
+    def _write(self, step: int, frozen, payload, extra) -> None:
         if frozen:
             if not os.path.exists(self._frozen_path):
-                _atomic_save({k: v.detach().cpu() for k, v in frozen.items()},
-                             self._frozen_path)
+                _atomic_save(frozen, self._frozen_path)
                 self._write_fingerprint(frozen_fingerprint(frozen))
             else:
                 self._check_frozen_fingerprint(frozen)
-        payload = trainer.state_dict()
         payload["extra"] = dict(extra or {})
         _atomic_save(payload, self._path(step))
         for old in self.all_steps()[:-self.max_to_keep]:

@@ -1,7 +1,7 @@
 """Trainer: builds the model and optimizer, runs optimizer steps, and
 drives the epoch loop with logging, checkpointing and resume.
 
-Port of mmoe_multimodal_rec_tpu/train/loop.py, on one device:
+Port of mmoe_multimodal_rec_tpu/train/loop.py:
 - `Trainer` initialises the model, baseline or HoME, from train.seed (or
   loads JAX params and batch_stats), freezes what `label_param` freezes,
   and runs `train/step.py`'s step;
@@ -17,8 +17,19 @@ Port of mmoe_multimodal_rec_tpu/train/loop.py, on one device:
 - `train.eval_every` evaluates the model on data.valid_pattern every that
   many optimizer steps (at most `train.eval_max_batches` batches) and logs
   eval_auc_good, eval_auc_best and eval_n.
-Not ported yet: the loss-curve PNGs (utils/plotting.py), train.profile,
-multi-GPU.
+On a mesh (`Trainer(..., mesh=parallel.mesh.make_mesh(cfg.train.mesh))`
+in every process of a torch.distributed group; `train --multihost`) each
+rank holds its model shards (parallel/mesh.shard_model) and their AdamW
+state, and computes the one-process step on the same global batch:
+`run_step` takes the rank's share of a global batch, `fit` the rank's
+own loader (`train_from_config` gives data rank r of dp the loader of
+host r of dp at batch_size / dp samples), whose sentence arrays it makes
+global first.  train.batch_size stays the GLOBAL micro-batch.  Rank 0
+logs and writes checkpoints in the one-process layout (gathered), and a
+checkpoint restores on any mesh.  `train.eval_every` evaluates the whole
+validation pass on every rank (model-parallel where the model is), which
+gives the one-process AUCs of the same weights.
+Not ported yet: the loss-curve PNGs (utils/plotting.py), train.profile.
 """
 from __future__ import annotations
 
@@ -27,12 +38,16 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.loader import device_prefetch, make_train_loader
 from ..data.packer import packer_from_config
 from ..models.layers import init_weights
 from ..models.mmoe import DTYPES, MMoERecModel
+from ..parallel.mesh import (DataShard, Mesh, all_gather_rows,
+                             check_divisible, gather_shards, make_mesh,
+                             shard_batch, shard_model, take_shard)
 from ..utils.convert import load_jax_params
 from ..utils.metrics import MetricsLogger, Throughput
 from .checkpoint import CheckpointManager
@@ -83,10 +98,13 @@ def dropout_generator(seed: int, host_step: int, micro: int
 class Trainer:
     def __init__(self, cfg: Config, device="cuda",
                  params: Optional[Mapping[str, np.ndarray]] = None,
-                 batch_stats: Optional[Mapping[str, np.ndarray]] = None):
+                 batch_stats: Optional[Mapping[str, np.ndarray]] = None,
+                 mesh: Optional[Mesh] = None):
         """params: the JAX param tree flattened with '/'-joined keys (numpy,
         LoRA unmerged), and batch_stats its HoME BatchNorm statistics
-        flattened the same way; None initialises from train.seed."""
+        flattened the same way; None initialises from train.seed.  mesh:
+        this rank's parallel.mesh.Mesh (every rank builds the whole model
+        from the same seed or params, then keeps its shards)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to train "
@@ -100,13 +118,25 @@ class Trainer:
         else:
             load_jax_params(self.model, params, cfg.model, merge_lora=False,
                             batch_stats=batch_stats)
+        self.mesh = mesh
+        self.shardings: Dict[str, Optional[int]] = {}
+        if mesh is not None:
+            check_divisible(cfg.train.batch_size, cfg.model.packer.chunk_budget,
+                            mesh)
+            if (mesh.model.size > 1 and cfg.model.remat
+                    and cfg.model.remat_policy.startswith("quant")):
+                raise NotImplementedError(
+                    "model.remat_policy's quantised saves do not take "
+                    "tensor parallelism: use full, attn or dots")
+            self.shardings = shard_model(self.model, mesh)
         self.model.to(device=self.device,
                       dtype=DTYPES[cfg.model.param_dtype])
         self.trainable, self.frozen = split_trainable(self.model, variant)
         self.optimizer, self.scheduler = make_optimizer(
             cfg.train.optim, variant, self.trainable)
         self.train_step = make_train_step(cfg, self.model, self.optimizer,
-                                          self.scheduler)
+                                          self.scheduler, mesh,
+                                          self.shardings)
         # optimizer steps are counted by the schedule; host_step also
         # counts skipped steps and keys the dropout and data streams
         self.host_step = 0
@@ -116,37 +146,102 @@ class Trainer:
         """Optimizer steps taken (skipped steps excluded)."""
         return self.scheduler.last_epoch
 
+    @property
+    def is_chief(self) -> bool:
+        """Whether this process logs and writes checkpoints (rank 0)."""
+        return not (self.mesh is not None and dist.is_initialized()
+                    and dist.get_rank() != 0)
+
     def to_device(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.ascontiguousarray(v)
                                    if isinstance(v, np.ndarray) else v
                                    ).to(self.device)
                 for k, v in batch.items() if k != "valid"}
 
-    def run_step(self, stacked_batch) -> Dict[str, float]:
+    def run_step(self, stacked_batch, local: bool = False
+                 ) -> Dict[str, float]:
         """One optimizer step over stacked micro-batches [accum, ...]
-        (numpy arrays or tensors; tensors already on the device stay put)."""
+        (numpy arrays or tensors; tensors already on the device stay put).
+        On a mesh the batch is the GLOBAL one, of which the rank takes its
+        share, unless `local`: then it is the rank's own loader's share,
+        whose sentence arrays index its own chunk rows."""
+        if self.mesh is not None and not local:
+            stacked_batch = shard_batch(stacked_batch, self.mesh,
+                                        accum_dim=True)
         stacked_batch = self.to_device(stacked_batch)
+        if self.mesh is not None and local:
+            stacked_batch = self._global_sentences(stacked_batch)
         accum = self.cfg.train.optim.grad_accum
         rngs = [dropout_generator(self.cfg.train.seed + 1, self.host_step, i)
                 for i in range(accum)]
+        if self.mesh is not None:
+            rngs = [DataShard(g, self.mesh.data) for g in rngs]
         self.host_step += 1
         return self.train_step(stacked_batch, rngs)
 
+    def _global_sentences(self, batch: Dict[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+        """A rank's loader batch with the global micro-batch's sentence
+        arrays: its chunk indices moved to its rows of the global chunk
+        axis, then every rank's gathered in rank order."""
+        data = self.mesh.data
+        out = dict(batch)
+        for side in ("user", "item"):
+            chunk = batch[f"{side}_sent_chunk"]
+            n = batch[f"{side}_tokens"].shape[1]
+            chunk = torch.where(chunk >= 0, chunk + data.rank * n, chunk)
+            for key, x in ((f"{side}_sent_chunk", chunk),
+                           (f"{side}_sent_tok", batch[f"{side}_sent_tok"])):
+                out[key] = all_gather_rows(x.transpose(0, 1),
+                                           data).transpose(0, 1).contiguous()
+        return out
+
     # -- checkpoint state ----------------------------------------------------
+    def _opt_dims(self) -> List[Optional[int]]:
+        """The model-shard dimension of each optimizer state slot, in the
+        optimizer's parameter order."""
+        names = {id(p): k for k, p in self.trainable.items()}
+        return [self.shardings.get(names[id(p)])
+                for g in self.optimizer.param_groups for p in g["params"]]
+
+    def _model_axis(self):
+        return self.mesh.model if self.mesh is not None else None
+
     def state_dict(self) -> Dict[str, Any]:
-        return {"trainable": {k: p.detach().cpu()
-                              for k, p in self.trainable.items()},
+        """The checkpoint payload in the one-process layout: on a mesh
+        every model shard gathered (each rank of the model group takes
+        part)."""
+        opt = self.optimizer.state_dict()
+        axis = self._model_axis()
+        if axis is not None and axis.size > 1:
+            dims = self._opt_dims()
+            opt["state"] = {i: gather_shards(
+                st, {k: dims[i] for k, v in st.items() if v.dim()}, axis)
+                for i, st in sorted(opt["state"].items())}
+            trainable = gather_shards(self.trainable, self.shardings, axis)
+        else:
+            trainable = {k: p.detach().cpu()
+                         for k, p in self.trainable.items()}
+        return {"trainable": trainable,
                 "batch_stats": {k: b.detach().cpu()
                                 for k, b in self.model.named_buffers()},
-                "optimizer": self.optimizer.state_dict(),
+                "optimizer": opt,
                 "scheduler": self.scheduler.state_dict()}
+
+    def frozen_state(self) -> Dict[str, torch.Tensor]:
+        """The frozen parameters, whole, on the CPU (gathered on a mesh)."""
+        axis = self._model_axis()
+        if axis is not None and axis.size > 1:
+            return gather_shards(self.frozen, self.shardings, axis)
+        return {k: v.detach().cpu() for k, v in self.frozen.items()}
 
     def load_state_dict(self, payload: Mapping[str, Any],
                         frozen: Optional[Mapping[str, torch.Tensor]] = None
                         ) -> None:
         """Strict: every trainable tensor and BatchNorm statistic (and,
         when given, frozen tensor) must be in the checkpoint with its
-        shape."""
+        shape.  The payload is in the one-process layout; on a mesh each
+        rank keeps its shards."""
         buffers = dict(self.model.named_buffers())
         with torch.no_grad():
             for group, saved in ((self.trainable, payload["trainable"]),
@@ -158,8 +253,17 @@ class Trainer:
                 if missing:
                     raise KeyError(f"checkpoint lacks {missing}")
                 for k, p in group.items():
-                    p.copy_(saved[k])
-        self.optimizer.load_state_dict(payload["optimizer"])
+                    p.copy_(take_shard(saved[k], self.shardings.get(k),
+                                       self._model_axis()))
+        opt = payload["optimizer"]
+        axis = self._model_axis()
+        if axis is not None and axis.size > 1:
+            dims = self._opt_dims()
+            opt = dict(opt, state={
+                i: {k: take_shard(v, dims[i] if v.dim() else None, axis)
+                    for k, v in st.items()}
+                for i, st in opt["state"].items()})
+        self.optimizer.load_state_dict(opt)
         self.scheduler.load_state_dict(payload["scheduler"])
 
     # -- epoch loop ----------------------------------------------------------
@@ -183,8 +287,10 @@ class Trainer:
             cfg.train.home_steps_per_epoch if cfg.model.variant == "home"
             else cfg.train.steps_per_epoch)
         opt_steps = micro_steps // accum
-        logger = logger or MetricsLogger(
-            os.path.join(cfg.train.output_dir, "metrics.jsonl"))
+        if logger is None:
+            logger = (MetricsLogger(os.path.join(cfg.train.output_dir,
+                                                 "metrics.jsonl"))
+                      if self.is_chief else MetricsLogger(echo=False))
         meter = Throughput()
         history: Dict[str, List] = {"step": [], "loss": [], "main_loss": [],
                                     "contrastive_loss": []}
@@ -211,7 +317,17 @@ class Trainer:
             ep_n = 0
             first = start_opt_step if epoch == start_epoch else 0
             for opt_step in range(first, opt_steps):
-                if preempt is not None and preempt.requested:
+                requested = preempt is not None and preempt.requested
+                batch = None
+                if not requested:
+                    batch = next(staged, None)
+                if self.mesh is not None:
+                    # every rank stops where any one must
+                    requested, missing = self._agree(requested,
+                                                     batch is None)
+                else:
+                    missing = batch is None
+                if requested:
                     # SIGTERM: save at the exact resume position (unless a
                     # periodic save already sits at this host_step) and stop
                     if ckpt is not None and \
@@ -220,12 +336,10 @@ class Trainer:
                                   extra=self._resume_extra(epoch, opt_step))
                     preempted = True
                     break
-                try:
-                    batch = next(staged)
-                except StopIteration:
+                if missing:
                     exhausted = True
                     break
-                m = self.run_step(batch)
+                m = self.run_step(batch, local=self.mesh is not None)
                 meter.update(global_examples)
                 history["step"].append(self.host_step)
                 for k in ("loss", "main_loss", "contrastive_loss"):
@@ -263,13 +377,22 @@ class Trainer:
         return {"history": history, "epoch_losses": epoch_losses,
                 "examples_per_sec": meter.rate(), "preempted": preempted}
 
+    def _agree(self, *flags: bool) -> List[bool]:
+        """Each flag, true on every rank where it is true on any."""
+        t = torch.tensor([int(f) for f in flags], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return [bool(v) for v in t.tolist()]
+
     def _resume_extra(self, epoch: int, opt_step_in_epoch: int) -> Dict:
         return {"epoch": epoch, "opt_step_in_epoch": opt_step_in_epoch,
                 "host_step": self.host_step}
 
 
 def train_from_config(cfg: Config, device="cuda") -> Dict[str, Any]:
-    """CLI entry: shards -> loader -> Trainer.fit with resume."""
+    """CLI entry: shards -> loader -> Trainer.fit with resume.  In a
+    torch.distributed process group the Trainer trains on the mesh of
+    cfg.train.mesh, and data rank r of dp reads the loader of host r of dp
+    at train.batch_size / dp samples (and chunk_budget / dp rows)."""
     from ..data.io import fs_glob
     shards = fs_glob(cfg.data.train_pattern)
     if not shards:
@@ -284,7 +407,10 @@ def train_from_config(cfg: Config, device="cuda") -> Dict[str, Any]:
                 f"train.eval_every is set but no shards match "
                 f"data.valid_pattern={cfg.data.valid_pattern!r}")
     packer = packer_from_config(cfg)
-    trainer = Trainer(cfg, device=device)
+    mesh = make_mesh(cfg.train.mesh) if dist.is_initialized() else None
+    trainer = Trainer(cfg, device=device, mesh=mesh)
+    dp, data_rank = (mesh.data.size, mesh.data.rank) if mesh else (1, 0)
+    budget = cfg.model.packer.chunk_budget
     eval_fn = None
     if eval_shards:
         from ..eval.evaluate import evaluate
@@ -303,13 +429,15 @@ def train_from_config(cfg: Config, device="cuda") -> Dict[str, Any]:
             start_epoch = int(extra.get("epoch", 0))
             start_opt_step = int(extra.get("opt_step_in_epoch", 0))
             trainer.host_step = int(extra.get("host_step", 0))
-            print(f"[resume] restored step={trainer.step} "
-                  f"epoch={start_epoch} opt_step={start_opt_step} "
-                  f"host_step={trainer.host_step}", flush=True)
+            if trainer.is_chief:
+                print(f"[resume] restored step={trainer.step} "
+                      f"epoch={start_epoch} opt_step={start_opt_step} "
+                      f"host_step={trainer.host_step}", flush=True)
     loader = make_train_loader(
-        shards, cfg.train.batch_size, packer,
+        shards, cfg.train.batch_size // dp, packer,
+        host_index=data_rank, host_count=dp,
         shuffle_buffer=cfg.data.shuffle_buffer, seed=cfg.train.seed,
-        chunk_budget=cfg.model.packer.chunk_budget,
+        chunk_budget=budget // dp if budget else budget,
         num_prefetch=cfg.data.num_prefetch,
         num_threads=cfg.data.num_tokenizer_threads,
         shard_shuffle=cfg.data.shard_shuffle,
@@ -321,7 +449,7 @@ def train_from_config(cfg: Config, device="cuda") -> Dict[str, Any]:
                                  start_epoch=start_epoch,
                                  start_opt_step=start_opt_step,
                                  preempt=guard, eval_fn=eval_fn)
-        if result["preempted"]:
+        if result["preempted"] and trainer.is_chief:
             print(f"[preempt] SIGTERM: checkpointed at host_step="
                   f"{trainer.host_step}; rerun with --train.resume=true "
                   f"to continue bit-identically", flush=True)

@@ -21,12 +21,14 @@ at init.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import OptimConfig
+from ..parallel.mesh import Axis
 
 
 def label_param(path: Tuple[str, ...], variant: str,
@@ -99,9 +101,21 @@ def make_optimizer(cfg: OptimConfig, variant: str,
     return opt, scheduler
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, in fp32."""
-    return torch.stack([g.float().pow(2).sum() for g in grads]).sum().sqrt()
+def global_norm(grads: List[torch.Tensor],
+                sharded: Optional[Sequence[bool]] = None,
+                model: Optional[Axis] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in fp32.  Under tensor
+    parallelism (`model`, the mesh's model axis, and `sharded`, which
+    gradients are model shards) the shards' squares are summed over the
+    axis and the replicated gradients, alike on every rank, count once."""
+    squares = [g.float().pow(2).sum() for g in grads]
+    if model is None or model.size == 1:
+        return torch.stack(squares).sum().sqrt()
+    zero = torch.zeros((), device=grads[0].device)
+    rep = sum((q for q, s in zip(squares, sharded) if not s), zero)
+    part = sum((q for q, s in zip(squares, sharded) if s), zero)
+    dist.all_reduce(part, group=model.group)
+    return (rep + part).sqrt()
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,

@@ -17,6 +17,13 @@ semantics are the same:
 - when every micro-batch was bad, neither the optimizer nor its schedule
   steps, as JAX keeps `opt_state` and `state.step` then.  Telling that
   apart is the step's one host sync.
+On a mesh (parallel/mesh.py) the batch is the rank's share and each
+micro-batch's loss the rank's share of the global one: the losses that
+decide a skip and that are logged are summed over `data` first (one small
+all-reduce a micro-batch), so every rank skips alike, and the accumulated
+gradients are summed over `data` once a step, in a few flat buckets,
+before the division by `grad_accum`; `grad_norm` sums the model shards'
+squares over `model`.
 `make_eval_step`: the deterministic forward to probabilities, with LoRA
 unmerged, as JAX's.  `make_bn_recalibration_step`: the same forward with
 HoME's BatchNorms on batch statistics, moving only their running
@@ -24,26 +31,35 @@ statistics.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..config import Config
+from ..parallel.mesh import Mesh, all_reduce_
 from .losses import total_loss
 from .optimizer import clip_by_global_norm, global_norm
 
 
 def make_train_step(cfg: Config, model: torch.nn.Module,
-                    optimizer: torch.optim.Optimizer, scheduler
+                    optimizer: torch.optim.Optimizer, scheduler,
+                    mesh: Optional[Mesh] = None,
+                    shardings: Optional[Mapping[str, Optional[int]]] = None
                     ) -> Callable[[Dict[str, torch.Tensor],
                                    Sequence[torch.Generator]],
                                   Dict[str, float]]:
+    """mesh: the rank's mesh, with `shardings` (parallel/mesh.
+    param_shardings) saying which parameters are model shards; the step's
+    rngs are then parallel/mesh.DataShard's."""
     home = cfg.model.variant == "home"
     loss_cfg = cfg.train.loss
     accum = cfg.train.optim.grad_accum
     max_norm = cfg.train.optim.max_grad_norm
-    params: List[torch.nn.Parameter] = [p for p in model.parameters()
-                                        if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params: List[torch.nn.Parameter] = [p for _, p in named]
+    sharded = [(shardings or {}).get(n) is not None for n, _ in named]
+    data = mesh.data if mesh is not None and mesh.data.size > 1 else None
     buffers: List[torch.Tensor] = list(model.buffers())
 
     def train_step(batch: Dict[str, torch.Tensor],
@@ -62,19 +78,28 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
             out = model(micro, deterministic=False, rng=rngs[i])
             parts = total_loss(out.logit_good, out.logit_best,
                                micro["label_good"], micro["label_best"],
-                               loss_cfg, aux=out.aux, home=home)
+                               loss_cfg, aux=out.aux, home=home, data=data)
             parts.total.backward()
-            ok = torch.isfinite(parts.total.detach())
+            total, main, cl = (parts.total.detach(), parts.main.detach(),
+                               parts.contrastive.detach())
+            if data is not None:
+                losses = torch.stack([total, main, cl])
+                dist.all_reduce(losses, group=data.group)
+                total, main, cl = losses.unbind()
+            ok = torch.isfinite(total)
             for b, old in zip(buffers, before):
                 b.copy_(torch.where(ok, b, old))
             for a, p in zip(acc, params):
                 if p.grad is not None:
                     a.add_(torch.where(ok, p.grad, 0.0))
             n_good += ok.to(torch.int32)
-            main_sum += torch.where(ok, parts.main.detach(), 0.0)
-            cl_sum += torch.where(ok, parts.contrastive.detach(), 0.0)
+            main_sum += torch.where(ok, main, 0.0)
+            cl_sum += torch.where(ok, cl, 0.0)
+        if mesh is not None:
+            all_reduce_(acc, mesh.data)
         grads = [a.div_(accum) for a in acc]
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, sharded,
+                                mesh.model if mesh is not None else None)
         n = int(n_good)
         if n > 0:
             clip_by_global_norm(grads, max_norm, grad_norm)

@@ -655,3 +655,151 @@ def test_short_attention_dropout_takes_the_keep_mask_kernel(monkeypatch):
             1 if device == "cuda" else 0)
     assert plain_calls == ["cpu"]
     assert (outs[0] - outs[1]).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# shards of a mesh (parallel/mesh.py): a head shard's counter, a row shard's
+# folded seed
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split_kernels_take_a_head_shard_and_a_folded_seed(dtype):
+    """#2 and #3 on heads 6-11 of 12 (h_total 12, h0 6), and on the second
+    half of the batch rows with the seed folded by their counter offset:
+    every output and gradient equals that slice of the whole call bit for
+    bit (a block computes one (row, head) from its inputs and counter
+    alone), and the shard's plain version within SPLIT_TOL."""
+    _need_card()
+    from mmoe_multimodal_rec_tpu_torch.ops.lora_dropout import fold_seed
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, l, heads, dh, rate, seed = 4, 384, 12, 64, 0.1, 2 ** 31 - 7
+    dt_ = getattr(torch, dtype)
+    q, k, v, g = (torch.randn(b, l, heads * dh, generator=gen, device="cuda")
+                  .to(dt_) for _ in range(4))
+    pad = torch.zeros(b, l, dtype=torch.bool, device="cuda")
+    pad[1, l // 2:] = True
+    _, stats = tfa._flash_fwd_cuda(q, k, v, pad, seed, heads, rate, True)
+    out = tfa.flash_attention(q, k, v, pad, seed, heads, rate)
+    grads = tfa.flash_attention_bwd(q, k, v, pad, seed, g, heads, rate, stats)
+    half = heads // 2
+    cols = slice(half * dh, heads * dh)
+    shard = [x[..., cols].contiguous() for x in (q, k, v, g)]
+    s_out = tfa.flash_attention(*shard[:3], pad, seed, half, rate,
+                                h_total=heads, h0=half)
+    _, s_stats = tfa._flash_fwd_cuda(*shard[:3], pad, seed, half, rate, True,
+                                     (heads, half))
+    s_grads = tfa.flash_attention_bwd(*shard[:3], pad, seed, shard[3], half,
+                                      rate, s_stats, h_total=heads, h0=half)
+    torch.cuda.synchronize()
+    assert torch.equal(s_out, out[..., cols])
+    for got, want in zip(s_grads, grads):
+        assert torch.equal(got, want[..., cols])
+    fwd_tol, _ = SPLIT_TOL[dtype]
+    ref = tfa.flash_attention_reference(*(x.float() for x in shard[:3]), pad,
+                                        seed, half, rate, heads, half)
+    assert (s_out.float() - ref).abs().max().item() <= fwd_tol
+    rows = slice(b // 2, b)
+    # a full-call seed whose fold for the second half passes 2^31
+    offset = (b // 2) * heads * l * l
+    seed = (2 ** 31 + 12345 - fold_seed(0, offset)) % 2 ** 32
+    folded = fold_seed(seed, offset)
+    assert folded == 2 ** 31 + 12345
+    _, stats = tfa._flash_fwd_cuda(q, k, v, pad, seed, heads, rate, True)
+    out = tfa.flash_attention(q, k, v, pad, seed, heads, rate)
+    grads = tfa.flash_attention_bwd(q, k, v, pad, seed, g, heads, rate, stats)
+    r_in = [x[rows].contiguous() for x in (q, k, v, g)]
+    r_out = tfa.flash_attention(*r_in[:3], pad[rows], folded, heads, rate)
+    _, r_stats = tfa._flash_fwd_cuda(*r_in[:3], pad[rows], folded, heads,
+                                     rate, True)
+    r_grads = tfa.flash_attention_bwd(*r_in[:3], pad[rows], folded, r_in[3],
+                                      heads, rate, r_stats)
+    torch.cuda.synchronize()
+    assert torch.equal(r_out, out[rows])
+    for got, want in zip(r_grads, grads):
+        assert torch.equal(got, want[rows])
+
+
+@pytest.mark.cuda
+def test_packed_kernels_take_a_head_shard():
+    """#1 and #7 on heads 6-11 of 12, packed from those heads alone, with
+    dropout: the output and dqkv equal the whole call's heads bit for
+    bit."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, l, heads, dh, rate, seed = 2, 256, 12, 64, 0.1, 77
+    d = heads * dh
+    q, k, v = (torch.randn(b, l, d, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    g = torch.randn(b, l, d, generator=gen, device="cuda").bfloat16()
+    half = heads // 2
+
+    def run(n, hb, h0, cols):
+        qkv = tfa.pack_qkv_weights(q[..., cols], k[..., cols], v[..., cols],
+                                   n, hb).contiguous().requires_grad_()
+        out = tfa.flash_attention_packed(qkv, None, seed, n, hb, rate,
+                                         h_total=heads, h0=h0)
+        out.backward(g[..., cols].contiguous())
+        grad = qkv.grad.reshape(b, l, n // hb, 3, hb, dh)
+        return out, [grad[:, :, :, i].reshape(b, l, n * dh) for i in range(3)]
+
+    out, grads = run(heads, 6, 0, slice(None))
+    s_out, s_grads = run(half, 6, half, slice(half * dh, d))
+    torch.cuda.synchronize()
+    assert torch.equal(s_out, out[..., half * dh:])
+    for got, want in zip(s_grads, grads):
+        assert torch.equal(got, want[..., half * dh:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk,h0", [(64, 4, 64, 64, 4), (6, 2, 2, 2, 2),
+                                          (3, 3, 7, 130, 3)])
+def test_keep_mask_kernel_takes_a_head_shard(b, h, lq, lk, h0):
+    """#8 on heads [h0, h0 + h) of 2h: that slice of the whole mask, and
+    its plain version, bit for bit."""
+    _need_card()
+    seed, rate = 2 ** 32 - 3, 0.1
+    full = tfa.dropout_keep_mask(seed, b, 2 * h, lq, lk, rate, device="cuda")
+    got = tfa.dropout_keep_mask(seed, b, h, lq, lk, rate, device="cuda",
+                                h_total=2 * h, h0=h0)
+    want = tfa.dropout_keep_mask_reference(seed, b, h, lq, lk, rate,
+                                           device="cuda", h_total=2 * h,
+                                           h0=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, full[:, h0:h0 + h])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_lora_kernels_take_a_folded_seed(dtype):
+    """#4-#6 on the second half of the rows with the seed folded past 2^31:
+    t and dh equal those rows of the whole call bit for bit, dA its plain
+    version on the shard (the tolerance of
+    test_lora_dropout_kernels_match_plain_versions)."""
+    _need_card()
+    from mmoe_multimodal_rec_tpu_torch.ops import lora_dropout as tld
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    m, d, r, rate = 8192, 768, 8, 0.1
+    # a seed whose fold for the second half passes 2^31
+    seed = (2 ** 31 + 999 - tld.fold_seed(0, (m // 2) * d)) % 2 ** 32
+    dt_ = getattr(torch, dtype)
+    h = torch.randn(m, d, generator=gen, device="cuda").to(dt_)
+    a = (0.1 * torch.randn(d, r, generator=gen, device="cuda")).to(dt_)
+    g = torch.randn(m, r, generator=gen, device="cuda").to(dt_)
+    rows = slice(m // 2, m)
+    folded = tld.fold_seed(seed, (m // 2) * d)
+    assert folded == 2 ** 31 + 999
+    t = tld.lora_dropout_fwd(h, a, seed, rate)
+    dh = tld.lora_dropout_dh(g, a, seed, rate)
+    s_h, s_g = h[rows].contiguous(), g[rows].contiguous()
+    s_t = tld.lora_dropout_fwd(s_h, a, folded, rate)
+    s_dh = tld.lora_dropout_dh(s_g, a, folded, rate)
+    s_da = tld.lora_dropout_da(s_h, s_g, folded, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(s_t, t[rows])
+    assert torch.equal(s_dh, dh[rows])
+    want = tld.lora_dropout_da_reference(s_h, s_g, folded, rate)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    err = (s_da.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()

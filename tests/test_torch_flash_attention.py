@@ -86,7 +86,8 @@ def test_dropout_mask_and_output_match_jax_interpret():
     _, _, _, packed = _qkv(b, l, hb, seed=2)
     keep_j = np.asarray(jfa.dropout_keep_mask(seed, b, H, l, l, rate,
                                               interpret=True))
-    keep_t = tfa.dropout_keep_mask(seed, b, H, l, l, rate).numpy()
+    keep_t = tfa.dropout_keep_mask(seed, b, H, l, l, rate,
+                                   device="cpu").numpy()
     np.testing.assert_array_equal(keep_t, keep_j)
     assert abs(keep_t.mean() - (1 - rate)) < 0.01
     mask = np.zeros((b, l), np.int8)
@@ -105,18 +106,21 @@ def test_keep_mask_counter_layout(seed, lq, lk, rate):
     strides over lk rounded up to 128) give JAX's bits too."""
     keep_j = np.asarray(jfa.dropout_keep_mask(seed, 2, H, lq, lk, rate,
                                               interpret=True))
-    keep_t = tfa.dropout_keep_mask(seed, 2, H, lq, lk, rate).numpy()
+    keep_t = tfa.dropout_keep_mask(seed, 2, H, lq, lk, rate,
+                                   device="cpu").numpy()
     np.testing.assert_array_equal(keep_t, keep_j)
 
 
 def test_keep_mask_wrapper_on_cpu_is_the_plain_version():
     """A CPU device takes dropout_keep_mask_reference and counts no launch;
-    a device with no kernel raises."""
+    a device with no kernel raises, and no device is assumed."""
     before = tfa.dropout_keep_mask.launches
-    got = tfa.dropout_keep_mask(7, 2, H, 64, 64, 0.1)
+    got = tfa.dropout_keep_mask(7, 2, H, 64, 64, 0.1, device="cpu")
     assert tfa.dropout_keep_mask.launches == before
-    assert torch.equal(got, tfa.dropout_keep_mask_reference(7, 2, H, 64, 64,
-                                                            0.1))
+    assert torch.equal(got, tfa.dropout_keep_mask_reference(
+        7, 2, H, 64, 64, 0.1, device="cpu"))
+    with pytest.raises(TypeError, match="device"):
+        tfa.dropout_keep_mask(7, 2, H, 64, 64, 0.1)
     with pytest.raises(ValueError, match="no kernel for device"):
         tfa.dropout_keep_mask(7, 2, H, 64, 64, 0.1, device="meta")
 

@@ -45,7 +45,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 exported = {}
-for sub in ("data", "models", "train", "eval", "ops", "utils"):
+for sub in ("data", "models", "train", "eval", "ops", "utils", "parallel"):
     mod = importlib.import_module(pkg.__name__ + "." + sub)
     exported[sub] = sorted(n for n in mod.__all__ if getattr(mod, n))
 import chip_smoke
@@ -70,7 +70,7 @@ print(json.dumps({"modules": names, "bad": bad, "exported": exported}))
                 "data.features", "data.minibeam", "data.beam_pipeline",
                 "data.ingest", "data.patches", "data.native_tokenizer",
                 "native", "models.text_expert", "utils.shared_base",
-                "utils.scan_convert", "utils.lora"):
+                "utils.scan_convert", "utils.lora", "parallel.mesh"):
         assert f"mmoe_multimodal_rec_tpu_torch.{mod}" in res["modules"]
     # each subpackage re-exports the JAX one's public names, but for the
     # JAX package's pytree plumbing, its plotting (not ported yet) and the
@@ -90,7 +90,7 @@ print(json.dumps({"modules": names, "bad": bad, "exported": exported}))
         assert not _FORBIDDEN.search(path.read_text()), path
 
 
-def test_cli_usage_and_unported_options(capsys, tmp_path):
+def test_cli_usage_and_unported_options(capsys, tmp_path, monkeypatch):
     """Usage; what is not ported raises; a checkpoint that is not there
     raises before a model is built, and an orbax directory of the JAX
     trainer is refused with the design it waits for."""
@@ -120,7 +120,12 @@ def test_cli_usage_and_unported_options(capsys, tmp_path):
         cli.main(["ckpt-info", f"--checkpoint={tmp_path / 'orbax'}"])
     with pytest.raises(FileNotFoundError):
         cli.main(["ckpt-info", "--checkpoint=/nowhere"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # --multihost joins the group torchrun describes, and refuses to start
+    # without it rather than train on one process
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         cli.main(["train", "--multihost", "--device=cpu"])
 
 

@@ -82,7 +82,8 @@ exits non-zero without the final result line:
      torch.profiler: n, finite AUCs, launches of #1 and #2 per forward;
      probabilities against the plain attention path and, for a small fp32
      model, against the CPU; then the CLI `eval --checkpoint` in a
-     subprocess prints the same n and AUCs;
+     subprocess prints the same n and AUCs; preds.csv holds every sample,
+     and the ROC PNG is written or named on stderr (no matplotlib);
  12. home_eval: the HoME checkpoint recalibrated over 2 batches of 128 (the
      BatchNorm statistics move and stay finite) and evaluated; a small fp32
      HoME model's recalibrated statistics and probabilities, card against
@@ -117,7 +118,16 @@ exits non-zero without the final result line:
      Trainer on its 1 x 1 mesh takes two steps equal bit for bit to the
      plain Trainer's (metrics, parameters, AdamW state, launches); then a
      profiled mesh step beside the train phase's default step (device time
-     by kind, the NCCL all-reduce counted).
+     by kind, the NCCL all-reduce counted); then one remat-quant step whose
+     every quantised save takes the tensor-parallel scale reduction (an
+     all-reduce MAX over the 1-rank model axis) equal bit for bit to the
+     plain Trainer's quant step;
+ 16. profile_check (after train): Trainer.fit with train.profile at full
+     width, 4 optimizer steps, steps 1-2 traced: the Chrome trace holds 2
+     train_step spans and 2 x the step's launches of #1-#6 and #8, counted
+     from its kernel events; their device time by kind beside the train
+     phase's; metrics.jsonl holds every step, and each loss-curve PNG is
+     written or named on stderr.
 Then one JSON line of kernel records, the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.  Needs one card; exits non-zero
 without one.
@@ -931,6 +941,30 @@ def kind_of(kernel_name: str) -> str:
     return "other"
 
 
+def launch_kind(kernel_name: str):
+    """The wrapper a kernel's launch counts for, once a call: None for the
+    kernels a call runs after its first (the attention backward's dk/dv
+    kernel follows dq, #5's reduction its products)."""
+    low = kernel_name.lower()
+    if "attention_bwd_dkdv" in low or "lora_da_reduce" in low:
+        return None
+    return kind_of(kernel_name)
+
+
+def written_or_named(paths, stderr: str):
+    """Each PNG written, or named on stderr as not written (a host without
+    matplotlib): {path: "written" | "named on stderr"}."""
+    out = {}
+    for path in paths:
+        if os.path.isfile(path):
+            out[os.path.basename(path)] = "written"
+        else:
+            check(f"{path} not written" in stderr,
+                  f"{path} neither written nor named on stderr: {stderr!r}")
+            out[os.path.basename(path)] = "named on stderr"
+    return out
+
+
 def profiled(fn):
     """Run fn() under torch.profiler: its result, device ms by kind and the
     top kernels, summed over the window, and the window's host-clock ms."""
@@ -1457,6 +1491,96 @@ def phase_train(timed_steps: int = 3):
     del trainer, batch
     torch.cuda.empty_cache()
     return run["launches"], prof, ckpt, run["peak_bytes"]
+
+
+def phase_profile_check(train_prof, steps: int = 4, start: int = 1,
+                        traced: int = 2):
+    """Trainer.fit with train.profile on, as a user takes a trace:
+    train_config() at full width for `steps` optimizer steps over seeded
+    random micro-batches, optimizer steps [start, start + traced) traced.
+    The Chrome trace fit writes to train.profile_dir must hold `traced`
+    train_step spans and, of each kernel of the training step (#1-#6, #8),
+    `traced` x expected_launches launches (counted from the trace's kernel
+    events, one a call: launch_kind), so the kernels that ctypes launches
+    show in a user's trace; their device time per traced step is logged
+    beside the train phase's profiled step.  fit's metrics.jsonl must hold
+    every step, finite, and each loss-curve PNG must be written or named on
+    stderr (the card's machine has no matplotlib)."""
+    import io
+
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.train.loop import Trainer
+    cfg = train_config()
+    root = os.path.join(WORK, "profile_check")
+    t = cfg.train
+    t.output_dir = os.path.join(root, "out")
+    t.profile_dir = os.path.join(root, "profile")
+    t.profile, t.profile_start, t.profile_steps = True, start, traced
+    t.log_every = 1
+    accum = t.optim.grad_accum
+    batches = [random_batch(cfg, seed=s) for s in range(steps * accum)]
+    trainer = Trainer(cfg, device="cuda")
+    err = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        result = trainer.fit(iter(batches), epochs=1,
+                             steps_per_epoch=steps * accum)
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    sys.stderr.write(err.getvalue())
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = expected_launches(cfg)
+    check(launches == {k: steps * n for k, n in want.items()},
+          f"fit's launches {launches}, expected {steps} x {want}")
+    path = os.path.join(t.profile_dir, "train_trace.json")
+    check(os.path.isfile(path), f"fit wrote no trace at {path}")
+    t0 = time.perf_counter()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    read_s = time.perf_counter() - t0
+    spans = [e for e in events if e.get("name") == "train_step"
+             and e.get("cat") == "user_annotation"]
+    check(len(spans) == traced, f"{len(spans)} train_step spans in the "
+                                f"trace, expected {traced}")
+    counts, ms = {}, {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        kind = kind_of(e["name"])
+        ms[kind] = ms.get(kind, 0.0) + e.get("dur", 0.0) / 1e3 / traced
+        call = launch_kind(e["name"])
+        if call is not None:
+            counts[call] = counts.get(call, 0) + 1
+    for kind, n in want.items():
+        if n and kind not in ("flash_attention_packed_stats",
+                              "flash_attention_packed_bwd"):
+            check(counts.get(kind, 0) == traced * n,
+                  f"{counts.get(kind, 0)} {kind} launches in the trace, "
+                  f"expected {traced} x {n}")
+    with open(os.path.join(t.output_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(x) for x in f if '"loss"' in x]
+    check(len(logged) == steps and all(math.isfinite(x["loss"])
+                                       and x["skipped_micro"] == 0
+                                       for x in logged),
+          f"metrics.jsonl steps: {logged}")
+    pngs = written_or_named(
+        [os.path.join(t.output_dir, n)
+         for n in ("train_loss_curves.png", "train_epoch_losses.png")],
+        err.getvalue())
+    device_ms = sum(ms.values())
+    log("profile_check", steps=steps, traced_steps=[start, start + traced],
+        fit_s=fit_s, trace_bytes=os.path.getsize(path), trace_read_s=read_s,
+        train_step_spans=len(spans), launches_in_trace=counts,
+        launches_per_step=want, device_ms_per_step=device_ms,
+        device_ms_per_step_by_kind=ms,
+        train_phase_device_ms=train_prof["device_ms"],
+        train_phase_device_ms_by_kind=train_prof["device_ms_by_kind"],
+        losses=[x["loss"] for x in logged], pngs=pngs,
+        examples_per_sec=result["examples_per_sec"])
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def check_trainer(cfg, device: str):
@@ -2161,9 +2285,12 @@ def cli_eval(ckpt: str, cfg, extra=()):
 
 def phase_eval(ckpt: str, shards):
     """The baseline checkpoint restored and evaluated at full width: one
-    pass on the host clock (the main path, its launches counted), one under
+    pass on the host clock (the main path, its launches counted; its
+    preds.csv, and its ROC PNG written or named on stderr), one under
     torch.profiler; the first batch's probabilities against the plain
     attention path; a small fp32 model card against CPU; the CLI."""
+    import io
+
     import torch
     from mmoe_multimodal_rec_tpu_torch.eval.evaluate import evaluate
     from mmoe_multimodal_rec_tpu_torch.train.step import make_eval_step
@@ -2175,12 +2302,22 @@ def phase_eval(ckpt: str, shards):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    err = io.StringIO()
     t0 = time.perf_counter()
-    res = evaluate(cfg, model, shards, output_dir=cfg.train.output_dir,
-                   save_preds="preds.csv")
+    with contextlib.redirect_stderr(err):
+        res = evaluate(cfg, model, shards, output_dir=cfg.train.output_dir,
+                       save_preds="preds.csv")
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     counts = read_launches()
+    sys.stderr.write(err.getvalue())
+    with open(os.path.join(cfg.train.output_dir, "preds.csv")) as f:
+        rows = f.read().splitlines()
+    check(len(rows) == EVAL_SAMPLES + 1
+          and rows[0] == "prob_good,label_good,prob_best,label_best",
+          f"preds.csv: {len(rows)} lines, header {rows[:1]}")
+    roc = written_or_named([os.path.join(cfg.train.output_dir,
+                                         "roc_curve.png")], err.getvalue())
     peak = torch.cuda.max_memory_allocated()
     check(res["n"] == EVAL_SAMPLES and math.isfinite(res["good"])
           and math.isfinite(res["best"]), f"eval result {res}")
@@ -2238,7 +2375,8 @@ def phase_eval(ckpt: str, shards):
         auc_good=res["good"], auc_best=res["best"], n=res["n"],
         kernel_vs_plain_path_max_prob_diff=plain_err,
         small_fp32_gpu_vs_cpu_max_prob_diff=small_err,
-        cli=cli, cli_seconds=cli_s, cli_auc_gap=cli_gap)
+        cli=cli, cli_seconds=cli_s, cli_auc_gap=cli_gap,
+        preds_csv_rows=len(rows) - 1, roc_png=roc)
     log("eval_profile", forwards=forwards, window_ms=window_ms,
         device_ms=device_ms, device_busy_share=device_ms / window_ms,
         device_ms_per_forward_by_kind={k: v / forwards
@@ -3012,6 +3150,44 @@ def _finish_group(proc, timeout: int):
     return proc.returncode, out, err
 
 
+@contextlib.contextmanager
+def saves_over(axis):
+    """Every quantised remat save (models/layers.quantize) of the block
+    reduced over `axis`, as a tensor-parallel layer's saves are (None: as
+    one process's); yields the list of the saves' shapes."""
+    from mmoe_multimodal_rec_tpu_torch.models import layers
+    real = layers.quantize
+    seen = []
+
+    def quantize(x, bits=8, _axis=None):
+        seen.append(tuple(x.shape))
+        return real(x, bits, axis)
+
+    layers.quantize = quantize
+    try:
+        yield seen
+    finally:
+        layers.quantize = real
+
+
+def quant_step(mesh):
+    """One step of remat_config("quant") on `mesh` (None: the plain
+    Trainer), every quantised save reduced over the mesh's model axis:
+    (metrics, state, number of saves)."""
+    import torch
+    from mmoe_multimodal_rec_tpu_torch.train.loop import Trainer
+    cfg = remat_config("quant")
+    trainer = Trainer(cfg, device="cuda", mesh=mesh)
+    batch = stacked(cfg, trainer, seed=0)
+    with saves_over(mesh.model if mesh is not None else None) as seen:
+        metrics = trainer.run_step(batch)
+    state = _state(trainer)
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, state, len(seen)
+
+
 def phase_mesh_check(pipeline, train_prof):
     """The mesh path on this card.  `train --multihost` starts through
     torch.distributed.run --nproc_per_node=1 on the pipeline phase's shards
@@ -3026,7 +3202,10 @@ def phase_mesh_check(pipeline, train_prof):
     the train phase's profiled default step (`train_prof`), the NCCL
     kernels of the gradient all-reduce counted (at one rank NCCL may reduce
     without a kernel: then `nccl` is 0 and the bucket's flatten and
-    copy-back are the cost)."""
+    copy-back are the cost).  Last, in the same group, one step under
+    remat quant whose every quantised save goes through the tensor-parallel
+    reduction (an all-reduce MAX of each row's max over the 1-rank model
+    axis on NCCL) must equal the plain Trainer's quant step bit for bit."""
     import socket
     import tempfile
 
@@ -3067,24 +3246,28 @@ def phase_mesh_check(pipeline, train_prof):
         plain = two_steps(None)[2:]
         gc.collect()
         torch.cuda.empty_cache()
+        plain_quant = quant_step(None)
         tmp = tempfile.mkdtemp(dir=WORK)
         dist.init_process_group("nccl",
                                 init_method=f"file://{tmp}/rendezvous",
                                 rank=0, world_size=1)
         try:
-            trainer, batch, *meshed = two_steps(make_mesh(cfg.train.mesh))
+            mesh = make_mesh(cfg.train.mesh)
+            trainer, batch, *meshed = two_steps(mesh)
             in_process_s = time.perf_counter() - t0
             rc, out, err = _finish_group(proc, timeout=300)
             cli_s = time.perf_counter() - t0
             _, window_ms, by_kind, top = profiled(
                 lambda: trainer.run_step(batch))
+            del trainer, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            meshed_quant = quant_step(mesh)
         finally:
             dist.destroy_process_group()
     finally:
         if proc.poll() is None:
             _finish_group(proc, timeout=0)
-    del trainer, batch
-    torch.cuda.empty_cache()
     check(meshed[0] == plain[0], f"mesh steps {meshed[0]} differ from the "
                                  f"plain steps {plain[0]}")
     differ = [k for k, t in plain[2].items()
@@ -3094,6 +3277,15 @@ def phase_mesh_check(pipeline, train_prof):
     want = expected_launches(cfg)
     check(meshed[1] == plain[1] == want, f"launches per step: mesh "
           f"{meshed[1]}, plain {plain[1]}, expected {want}")
+    check(meshed_quant[0] == plain_quant[0], f"mesh quant step "
+          f"{meshed_quant[0]} differs from the plain one {plain_quant[0]}")
+    differ = [k for k, t in plain_quant[1].items()
+              if not torch.equal(t, meshed_quant[1][k])]
+    check(not differ and plain_quant[1].keys() == meshed_quant[1].keys(),
+          f"after the quant step the mesh path's state differs in "
+          f"{differ[:5]}")
+    check(meshed_quant[2] == plain_quant[2] > 0,
+          f"quantised saves: mesh {meshed_quant[2]}, plain {plain_quant[2]}")
     check(rc == 0, f"torchrun train --multihost: exit {rc}\n{err[-3000:]}")
     results = [json.loads(x) for x in out.splitlines()
                if x.startswith('{"examples_per_sec"')]
@@ -3105,6 +3297,9 @@ def phase_mesh_check(pipeline, train_prof):
           f"torchrun train --multihost: {results}, steps {steps}")
     device_ms = sum(by_kind.values())
     rec = {"steps_equal_bitwise": True, "metrics": meshed[0],
+           "quant_step_equal_bitwise": True,
+           "quant_saves_reduced_per_step": meshed_quant[2],
+           "quant_metrics": meshed_quant[0],
            "launches_per_step": meshed[1],
            "mesh_profile": {"window_ms": window_ms, "device_ms": device_ms,
                             "device_ms_by_kind": by_kind,
@@ -3492,6 +3687,7 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         train_launches, train_prof, ckpt, peak = phase_train()
+        phase_profile_check(train_prof)
         phase_train_check()
         home_launches, home_prof, home_ckpt = phase_home_train()
         phase_home_check()

@@ -34,7 +34,11 @@ port's own torch checkpoints and resumes from them.  `eval` and `serve`
 load the port's checkpoints (`--checkpoint`, else train.checkpoint_dir) or
 a reference torch .pt (`--reference-ckpt`); with neither they score seeded
 init weights, as the JAX CLI does when it finds no checkpoint.  The JAX
-trainer's orbax checkpoints are refused: reading them needs a design first.
+trainer's orbax checkpoints are refused with the command that converts
+them (tools/orbax_to_torch.py, run where the JAX package is installed):
+
+  python tools/orbax_to_torch.py --checkpoint=<JAX checkpoint_dir> \\
+      --output=<dir> [--step=N] <the run's --key=value model flags>
 """
 from __future__ import annotations
 
@@ -461,7 +465,7 @@ def cmd_ckpt_info(argv: List[str]) -> int:
     layout) without building a model: steps present, resume position,
     payload composition, frozen-base fingerprint.  The payloads are read
     with torch.load(weights_only=True); an orbax directory of the JAX
-    trainer is refused."""
+    trainer is refused with the converter's command."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--checkpoint", type=str, default=None,
                     help="the port's checkpoint dir (defaults to "

@@ -232,8 +232,9 @@ class TrainConfig:
     # PRNG impl for dropout streams: "rbg" is far cheaper than threefry on
     # TPU and dropout needs no cross-impl reproducibility.
     rng_impl: str = "rbg"
-    # jax.profiler tracing (reference has none — SURVEY §5): capture steps
-    # [profile_start, profile_start + profile_steps) of the first epoch.
+    # torch.profiler tracing (reference has none — SURVEY §5): capture
+    # optimizer steps [profile_start, profile_start + profile_steps) of a
+    # Trainer.fit call into a Chrome trace in profile_dir (train/loop.py).
     profile: bool = False
     profile_dir: str = "./outputs/profile"
     profile_start: int = 3

@@ -18,8 +18,9 @@ off; here the statistics move IN PLACE in the model (JAX returns new
 ones).  `total_samples=None` streams one full pass over the shards, as in
 JAX (the reference hardcodes 22281, its full valid split).
 
-Not ported: the ROC curve PNG (utils/plotting.plot_roc): matplotlib is not
-on the card's machine.  `output_dir` gets the predictions CSV only.
+`output_dir` gets the ROC curves (utils/plotting.plot_roc, roc_curve.png;
+where matplotlib cannot be imported, a line on stderr says so instead) and,
+with `save_preds`, the predictions CSV.
 """
 from __future__ import annotations
 
@@ -28,13 +29,15 @@ import math
 import os
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..config import Config
 from ..data.loader import device_prefetch, make_eval_loader
 from ..data.packer import TextPacker, packer_from_config
 from ..train.step import make_bn_recalibration_step, make_eval_step
-from .auc import StreamingPredictions
+from ..utils.plotting import plot_roc
+from .auc import StreamingPredictions, roc_curve
 
 
 def _device(model: torch.nn.Module) -> torch.device:
@@ -88,8 +91,9 @@ def evaluate(cfg: Config, model: torch.nn.Module,
     `max_batches` bounds the streamed pass (mid-training monitoring);
     `eval_step` lets callers reuse one step across repeated evals.  With
     `recalibrate`, the model's BatchNorm statistics are recalibrated first
-    (in place).  With `output_dir` and `save_preds`, the predictions go to
-    `output_dir/save_preds` as JAX writes them."""
+    (in place).  With `output_dir`, the ROC curves of the tasks that saw
+    both labels go to `output_dir/roc_curve.png`, and with `save_preds` the
+    predictions to `output_dir/save_preds`, as JAX writes them."""
     packer = packer or packer_from_config(cfg)
     batch_size = batch_size or cfg.train.batch_size
     if recalibrate:
@@ -108,8 +112,18 @@ def evaluate(cfg: Config, model: torch.nn.Module,
 
     aucs = preds.aucs()
     result = {"good": aucs["good"], "best": aucs["best"], "n": preds.n}
-    if output_dir and save_preds:
-        os.makedirs(output_dir, exist_ok=True)
+    if not output_dir:
+        return result
+    os.makedirs(output_dir, exist_ok=True)
+    curves = {}
+    for task in ("good", "best"):
+        labels, probs = preds.concatenated(task)
+        if len(np.unique(labels)) == 2:
+            fpr, tpr, _ = roc_curve(labels, probs)
+            curves[task] = (fpr, tpr, aucs[task])
+    if curves:
+        plot_roc(curves, output_dir)
+    if save_preds:
         lg, pg = preds.concatenated("good")
         lb, pb = preds.concatenated("best")
         with open(os.path.join(output_dir, save_preds), "w",

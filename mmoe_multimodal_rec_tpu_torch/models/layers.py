@@ -37,6 +37,7 @@ import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -210,16 +211,26 @@ class _ValueWithGradTo(torch.autograd.Function):
         return None, g
 
 
-def quantize(x: torch.Tensor, bits: int = 8
+def quantize(x: torch.Tensor, bits: int = 8, axis: Optional[Axis] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric quantisation of x [..., n] as JAX's quant_save:
     (q int8, scale fp32 [..., 1]).  int8: scale = rowmax|x| / 127.  int4:
     scale = rowmax|x| / 7, and the column halves pack two to a byte,
     `lo & 0x0F | hi << 4` ([..., n/2]).  Rounds half to even after a true
-    division by the scale, as jnp.round(x / sc) does."""
+    division by the scale, as jnp.round(x / sc) does.
+
+    `axis`: the model axis when x is a column shard of a tensor-parallel
+    layer's output.  Each row's max |x| is then the max over the axis (one
+    [..., 1] fp32 all-reduce MAX in the axis's process group, issued by
+    every rank of it, one rank included), so every shard divides by the
+    whole row's scale, as JAX's max over a sharded last axis does.  int4
+    pairs the halves of the rank's own columns: the packed layout differs
+    from one process's, the dequantised values do not."""
     x32 = x.detach().float()
-    sc = (x32.abs().amax(-1, keepdim=True)
-          / (127.0 if bits == 8 else 7.0)).clamp_min(1e-12)
+    amax = x32.abs().amax(-1, keepdim=True)
+    if axis is not None and axis.group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=axis.group)
+    sc = (amax / (127.0 if bits == 8 else 7.0)).clamp_min(1e-12)
     q = torch.round(x32 / sc).to(torch.int8)
     if bits == 8:
         return q, sc
@@ -240,10 +251,11 @@ def dequantize(q: torch.Tensor, sc: torch.Tensor, bits: int,
     return (q.float() * sc).to(dtype)
 
 
-def quant_save(x: torch.Tensor, bits: int = 8):
+def quant_save(x: torch.Tensor, bits: int = 8, axis: Optional[Axis] = None):
     """models/layers.quant_save: (the dequantised value, whose gradient
-    passes unchanged to x, and the saved (q, scale))."""
-    q, sc = quantize(x, bits)
+    passes unchanged to x, and the saved (q, scale)); `axis` as
+    `quantize`'s."""
+    q, sc = quantize(x, bits, axis)
     return _ValueWithGradTo.apply(dequantize(q, sc, bits, x.dtype), x), (q, sc)
 
 
@@ -290,14 +302,18 @@ class RematState:
     def bits(self, name: str) -> int:
         return self.policy.quant_bits(name) if self.quantises else 0
 
-    def save(self, name: str, y: torch.Tensor) -> torch.Tensor:
+    def save(self, name: str, y: torch.Tensor,
+             axis: Optional[Axis] = None) -> torch.Tensor:
         """First forward: keep y quantised; the layer goes on with the
         dequantised value (its gradient straight through to y, for a
-        forward that autograd records)."""
+        forward that autograd records).  `axis`: the model axis y's
+        columns are split over (tensor parallelism), whose ranks reduce
+        each row's scale together; the recompute restores and issues no
+        collective here."""
         bits = self.bits(name)
         if not bits:
             return y
-        value, self.saved[name] = quant_save(y, bits)
+        value, self.saved[name] = quant_save(y, bits, axis)
         return value
 
     def restore(self, name: str, x: torch.Tensor, w: torch.Tensor,
@@ -671,10 +687,8 @@ class Attention(nn.Module):
                 remat: Optional[RematState] = None) -> torch.Tensor:
         b, l, _ = query.shape
         restoring = remat is not None and remat.restoring
-        if (restoring and self.query_parallel()
-                and any(remat.bits(n) for n in ("q", "k", "v", "qkv"))):
-            raise NotImplementedError("the quantised remat saves do not "
-                                      "take a tensor-parallel layer")
+        # the model axis of a tensor-parallel layer's q/k/v column shards
+        axis = self._base("query").axis if self.query_parallel() else None
         h = self.num_heads
         head_dim = self._base("query").weight.shape[0] // h
         # the head shard's arguments, passed only on a shard
@@ -689,15 +703,15 @@ class Attention(nn.Module):
                                    self.value.weight.t(), h, hb)
             b_g = pack_qkv_weights(self.query.bias, self.key.bias,
                                    self.value.bias, h, hb)
-            xw = (copy_to_model(query.to(self.dtype), self.query.axis)
-                  if self.query_parallel() else query.to(self.dtype),
+            xw = (copy_to_model(query.to(self.dtype), axis)
+                  if axis is not None else query.to(self.dtype),
                   w_g.t().to(self.dtype), b_g.to(self.dtype))
             if restoring and remat.bits("qkv"):
                 qkv = remat.restore("qkv", *xw)
             else:
                 qkv = F.linear(*xw)
                 if remat is not None:
-                    qkv = remat.save("qkv", qkv)
+                    qkv = remat.save("qkv", qkv, axis)
             seed = (self._attention_seed(rng, b, l, l) if rate > 0.0
                     else None)
             return self.out(flash_attention_packed(qkv, pad_mask, seed, h,
@@ -709,8 +723,10 @@ class Attention(nn.Module):
                 base = mod.base if lora else mod
                 delta = (mod.delta(x, deterministic, rng, lora_split)
                          if lora else None)
-                return remat.restore(name, x.to(self.dtype),
-                                     base.weight.to(self.dtype),
+                xin = x.to(self.dtype)
+                if axis is not None:
+                    xin = copy_to_model(xin, axis)
+                return remat.restore(name, xin, base.weight.to(self.dtype),
                                      base.bias.to(self.dtype), delta)
             if lora:
                 return mod(x, deterministic, rng, lora_split)
@@ -720,7 +736,8 @@ class Attention(nn.Module):
         k = project(self.key, key, "k")
         v = project(self.value, value, "v")
         if remat is not None and not restoring:
-            q, k, v = (remat.save(n, t) for n, t in zip("qkv", (q, k, v)))
+            q, k, v = (remat.save(n, t, axis)
+                       for n, t in zip("qkv", (q, k, v)))
         flash = self.use_flash and _flash_ok(q, head_dim, rate)
         seed = (self._attention_seed(rng, b, q.shape[1],
                                      _lk_padded(k.shape[1]))
@@ -762,17 +779,17 @@ class Mlp(nn.Module):
                 remat: Optional[RematState] = None) -> torch.Tensor:
         """`remat`: as Attention's, for the fc1 preactivation."""
         fc1 = self.fc1
+        axis = fc1.axis if fc1.parallel == "col" else None
         if remat is not None and remat.restoring and remat.bits("fc1"):
-            if fc1.parallel is not None:
-                raise NotImplementedError("the quantised remat saves do not "
-                                          "take a tensor-parallel layer")
-            x = remat.restore("fc1", x.to(fc1.dtype),
-                              fc1.weight.to(fc1.dtype),
+            h = x.to(fc1.dtype)
+            if axis is not None:
+                h = copy_to_model(h, axis)
+            x = remat.restore("fc1", h, fc1.weight.to(fc1.dtype),
                               fc1.bias.to(fc1.dtype))
         else:
             x = fc1(x)
             if remat is not None:
-                x = remat.save("fc1", x)
+                x = remat.save("fc1", x, axis)
         x = dropout(self.activation(x), self.dropout, deterministic, rng,
                     self.cols)
         return dropout(self.fc2(x), self.out_dropout, deterministic, rng)

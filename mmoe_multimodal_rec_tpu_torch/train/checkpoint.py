@@ -19,7 +19,10 @@ a torn checkpoint; `max_to_keep` bounds the payloads kept.  Loading uses
 containers only.  `restore` resumes a Trainer; `restore_model` loads the
 weights and BatchNorm statistics into a bare model for eval and serving,
 with no optimizer.  A directory the JAX trainer wrote (orbax) is refused
-with `check_not_orbax`: reading orbax without orbax needs a design first.
+with `check_not_orbax`, whose message names the converter: orbax stores
+its arrays through tensorstore, which only orbax reads, so
+tools/orbax_to_torch.py runs where the JAX package runs and writes this
+layout, bit for bit.
 
 A Trainer on a mesh (parallel/mesh.py) saves the one-process layout: every
 rank takes part in gathering the model shards of the parameters and of
@@ -42,19 +45,19 @@ _PAYLOAD = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
 def check_not_orbax(directory: str) -> None:
-    """Raise if `directory` holds the JAX trainer's orbax checkpoints (step
-    subdirectories, `frozen_once/`), which the port cannot read yet."""
+    """Raise ValueError naming the converter if `directory` holds the JAX
+    trainer's orbax checkpoints (step subdirectories, `frozen_once/`)."""
     if not os.path.isdir(directory):
         return
     entries = [e for e in os.listdir(directory)
                if os.path.isdir(os.path.join(directory, e))]
     if any(e.isdigit() or e == "frozen_once" for e in entries):
-        raise NotImplementedError(
+        raise ValueError(
             f"{directory!r} holds orbax checkpoints of the JAX trainer; the "
-            "port reads its own torch checkpoints only.  Reading orbax "
-            "without orbax or tensorstore needs a design first (a converter "
-            "run beside the JAX package, or a reader of orbax's on-disk "
-            "format).")
+            "port reads its own torch checkpoints.  Convert them where the "
+            "JAX package is installed: python tools/orbax_to_torch.py "
+            f"--checkpoint={directory} --output=<new dir> plus the run's "
+            "--key=value model flags, then pass the new directory.")
 
 
 def frozen_fingerprint(frozen: Dict[str, torch.Tensor]) -> str:

@@ -16,7 +16,14 @@ Port of mmoe_multimodal_rec_tpu/train/loop.py:
   and on SIGTERM saves and returns (train/preemption.py);
 - `train.eval_every` evaluates the model on data.valid_pattern every that
   many optimizer steps (at most `train.eval_max_batches` batches) and logs
-  eval_auc_good, eval_auc_best and eval_n.
+  eval_auc_good, eval_auc_best and eval_n;
+- `train.profile` traces optimizer steps [profile_start, profile_start +
+  profile_steps) of the `fit` call under torch.profiler (CPU activity, and
+  CUDA on a card), each step in a `train_step` span, and writes a Chrome
+  trace to train.profile_dir (`train_trace.json`, on a mesh
+  `train_trace.rank<r>.json` per rank);
+- the end of `fit` draws the loss curves into output_dir
+  (utils/plotting: train_loss_curves.png, train_epoch_losses.png).
 On a mesh (`Trainer(..., mesh=parallel.mesh.make_mesh(cfg.train.mesh))`
 in every process of a torch.distributed group; `train --multihost`) each
 rank holds its model shards (parallel/mesh.shard_model) and their AdamW
@@ -29,10 +36,10 @@ logs and writes checkpoints in the one-process layout (gathered), and a
 checkpoint restores on any mesh.  `train.eval_every` evaluates the whole
 validation pass on every rank (model-parallel where the model is), which
 gives the one-process AUCs of the same weights.
-Not ported yet: the loss-curve PNGs (utils/plotting.py), train.profile.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional
 
@@ -50,7 +57,8 @@ from ..parallel.mesh import (DataShard, Mesh, all_gather_rows,
                              shard_batch, shard_model, take_shard)
 from ..utils.convert import load_jax_params
 from ..utils.metrics import MetricsLogger, Throughput
-from .checkpoint import CheckpointManager
+from ..utils.plotting import plot_epoch_losses, plot_loss_curves
+from .checkpoint import CheckpointManager, check_not_orbax
 from .optimizer import make_optimizer, split_trainable
 from .preemption import PreemptionGuard
 from .step import make_train_step
@@ -123,11 +131,6 @@ class Trainer:
         if mesh is not None:
             check_divisible(cfg.train.batch_size, cfg.model.packer.chunk_budget,
                             mesh)
-            if (mesh.model.size > 1 and cfg.model.remat
-                    and cfg.model.remat_policy.startswith("quant")):
-                raise NotImplementedError(
-                    "model.remat_policy's quantised saves do not take "
-                    "tensor parallelism: use full, attn or dots")
             self.shardings = shard_model(self.model, mesh)
         self.model.to(device=self.device,
                       dtype=DTYPES[cfg.model.param_dtype])
@@ -279,8 +282,6 @@ class Trainer:
         """eval_fn(trainer) -> {'good', 'best', 'n'}: run every
         train.eval_every optimizer steps when given."""
         cfg = self.cfg
-        if cfg.train.profile:
-            raise NotImplementedError("train.profile is not yet ported")
         epochs = epochs if epochs is not None else cfg.train.epochs
         accum = cfg.train.optim.grad_accum
         micro_steps = steps_per_epoch if steps_per_epoch is not None else (
@@ -312,6 +313,8 @@ class Trainer:
         staged = device_prefetch(stacked_iter(), n=cfg.data.num_prefetch,
                                  device=self.device)
         exhausted = preempted = False
+        profiler = None
+        total_opt_steps = 0
         for epoch in range(start_epoch, epochs):
             ep_main = ep_cl = 0.0
             ep_n = 0
@@ -339,7 +342,20 @@ class Trainer:
                 if missing:
                     exhausted = True
                     break
-                m = self.run_step(batch, local=self.mesh is not None)
+                if cfg.train.profile:
+                    if total_opt_steps == cfg.train.profile_start:
+                        profiler = self._start_profile()
+                    elif profiler is not None and total_opt_steps == (
+                            cfg.train.profile_start
+                            + cfg.train.profile_steps):
+                        self._stop_profile(profiler)
+                        profiler = None
+                total_opt_steps += 1
+                span = (torch.profiler.record_function("train_step")
+                        if profiler is not None
+                        else contextlib.nullcontext())
+                with span:
+                    m = self.run_step(batch, local=self.mesh is not None)
                 meter.update(global_examples)
                 history["step"].append(self.host_step)
                 for k in ("loss", "main_loss", "contrastive_loss"):
@@ -374,8 +390,44 @@ class Trainer:
                               extra=self._resume_extra(epoch + 1, 0))
             if exhausted:
                 break
+        if profiler is not None:
+            self._stop_profile(profiler)
+        if self.is_chief:
+            out_dir = cfg.train.output_dir
+            os.makedirs(out_dir, exist_ok=True)
+            plot_loss_curves(history["step"],
+                             {"total": history["loss"],
+                              "main": history["main_loss"],
+                              "contrastive": history["contrastive_loss"]},
+                             out_dir)
+            plot_epoch_losses(epoch_losses, out_dir)
         return {"history": history, "epoch_losses": epoch_losses,
                 "examples_per_sec": meter.rate(), "preempted": preempted}
+
+    def _start_profile(self) -> "torch.profiler.profile":
+        """A running torch.profiler over the CPU and, on a card, CUDA."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler) -> str:
+        """Stop `profiler` once the device has finished the traced steps
+        and write its Chrome trace into train.profile_dir; returns the
+        path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        directory = self.cfg.train.profile_dir
+        os.makedirs(directory, exist_ok=True)
+        rank = (f".rank{dist.get_rank()}"
+                if self.mesh is not None and dist.is_initialized() else "")
+        path = os.path.join(directory, f"train_trace{rank}.json")
+        profiler.export_chrome_trace(path)
+        return path
 
     def _agree(self, *flags: bool) -> List[bool]:
         """Each flag, true on every rank where it is true on any."""
@@ -406,6 +458,7 @@ def train_from_config(cfg: Config, device="cuda") -> Dict[str, Any]:
             raise FileNotFoundError(
                 f"train.eval_every is set but no shards match "
                 f"data.valid_pattern={cfg.data.valid_pattern!r}")
+    check_not_orbax(cfg.train.checkpoint_dir)
     packer = packer_from_config(cfg)
     mesh = make_mesh(cfg.train.mesh) if dist.is_initialized() else None
     trainer = Trainer(cfg, device=device, mesh=mesh)

@@ -70,15 +70,15 @@ print(json.dumps({"modules": names, "bad": bad, "exported": exported}))
                 "data.features", "data.minibeam", "data.beam_pipeline",
                 "data.ingest", "data.patches", "data.native_tokenizer",
                 "native", "models.text_expert", "utils.shared_base",
-                "utils.scan_convert", "utils.lora", "parallel.mesh"):
+                "utils.scan_convert", "utils.lora", "utils.plotting",
+                "parallel.mesh"):
         assert f"mmoe_multimodal_rec_tpu_torch.{mod}" in res["modules"]
     # each subpackage re-exports the JAX one's public names, but for the
-    # JAX package's pytree plumbing, its plotting (not ported yet) and the
-    # split-attention function, whose name is its module's
+    # JAX package's pytree plumbing and the split-attention function, whose
+    # name is its module's
     import importlib
     not_exported = {"TrainState", "init_model_variables", "merge_params",
-                    "param_labels", "plot_epoch_losses", "plot_loss_curves",
-                    "plot_roc", "flash_attention"}
+                    "param_labels", "flash_attention"}
     for sub, names in res["exported"].items():
         jax_all = importlib.import_module(
             f"mmoe_multimodal_rec_tpu.{sub}").__all__
@@ -90,10 +90,27 @@ print(json.dumps({"modules": names, "bad": bad, "exported": exported}))
         assert not _FORBIDDEN.search(path.read_text()), path
 
 
+def test_port_mirrors_the_jax_package():
+    """The port has a module for each of the JAX package's, and of its own
+    only ops/cuda_lib.py (the kernels' loader) and utils/convert.py (JAX
+    params into the port); nothing but minibeam's abstract methods raises
+    NotImplementedError."""
+    jax_pkg = REPO / "mmoe_multimodal_rec_tpu"
+    files = lambda root: {str(p.relative_to(root))
+                          for p in root.rglob("*.py")}
+    assert files(jax_pkg) - files(PORT_PKG) == set()
+    assert files(PORT_PKG) - files(jax_pkg) == {"ops/cuda_lib.py",
+                                                "utils/convert.py"}
+    raising = sorted(str(p.relative_to(PORT_PKG))
+                     for p in PORT_PKG.rglob("*.py")
+                     if "NotImplementedError" in p.read_text())
+    assert raising == ["data/minibeam.py"]
+
+
 def test_cli_usage_and_unported_options(capsys, tmp_path, monkeypatch):
-    """Usage; what is not ported raises; a checkpoint that is not there
-    raises before a model is built, and an orbax directory of the JAX
-    trainer is refused with the design it waits for."""
+    """Usage; a checkpoint that is not there raises before a model is
+    built, and an orbax directory of the JAX trainer is refused, by eval,
+    serve, ckpt-info and train, with the converter's command."""
     assert cli.main([]) == 2
     assert cli.main(["--help"]) == 0
     assert cli.main(["no-such-command"]) == 2
@@ -110,14 +127,21 @@ def test_cli_usage_and_unported_options(capsys, tmp_path, monkeypatch):
                       "--device=cpu"])
     (tmp_path / "orbax" / "frozen_once").mkdir(parents=True)
     (tmp_path / "orbax" / "4").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax.*needs a design"):
+    (tmp_path / "shard.tar.gz").touch()
+    converter = (r"orbax checkpoints.*python tools/orbax_to_torch.py "
+                 rf"--checkpoint={tmp_path / 'orbax'} --output=")
+    with pytest.raises(ValueError, match=converter):
         cli.main(["eval", f"--checkpoint={tmp_path / 'orbax'}",
                   "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(ValueError, match=converter):
         cli.main(["serve", "--device=cpu",
                   f"--train.checkpoint_dir={tmp_path / 'orbax'}"])
-    with pytest.raises(NotImplementedError, match="orbax.*needs a design"):
+    with pytest.raises(ValueError, match=converter):
         cli.main(["ckpt-info", f"--checkpoint={tmp_path / 'orbax'}"])
+    with pytest.raises(ValueError, match=converter):
+        cli.main(["train", "--device=cpu", "--train.resume=true",
+                  f"--data.train_pattern={tmp_path / 'shard.tar.gz'}",
+                  f"--train.checkpoint_dir={tmp_path / 'orbax'}"])
     with pytest.raises(FileNotFoundError):
         cli.main(["ckpt-info", "--checkpoint=/nowhere"])
     # --multihost joins the group torchrun describes, and refuses to start

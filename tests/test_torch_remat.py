@@ -178,8 +178,8 @@ class QuantTwin:
     def replay(self):
         real = tlayers.quantize
 
-        def on_jax_saves(x, bits=8):
-            q, sc = real(x, bits)
+        def on_jax_saves(x, bits=8, axis=None):
+            q, sc = real(x, bits, axis)
             jq = min((a for n, a in self.jax if n.endswith(f"_q{bits}")
                       and a.shape == tuple(q.shape)),
                      key=lambda a: int((a != q.numpy()).sum()))

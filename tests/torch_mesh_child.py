@@ -12,10 +12,19 @@ with the spec's `jobs`, each one Trainer on the mesh of its config:
   params), or null to initialise from train.seed;
 - `restore`: a checkpoint directory to restore before the steps;
 - `batches`: .npz key prefixes of stacked GLOBAL batches, one per step;
-- `save`: a checkpoint directory to write after the steps.
+- `save`: a checkpoint directory to write after the steps;
+- `saves`: true to record every quantised remat save the steps make
+  (`SaveLog`, the rank's shard).
 Per job it records the step metrics, every dropout keep mask the forward
 drew (in call order, the rank's shard) and, on rank 0, the Trainer's
-gathered state (`state_dict`).
+gathered state (`state_dict`).  Two jobs build no Trainer:
+- `quantize`: an .npz key; the rank quantises its model shard of that
+  [rows, n] array's columns at 8 and 4 bits over the model axis;
+- `vit_layer`: an .npz key prefix holding a ViTLayer's state_dict and
+  its `x` and `g`, with the ImageEncoderConfig in `image` and the
+  remat policy in `policy`: the rank shards the layer, runs it forward in
+  training mode and backward from g, and records its quantised saves, the
+  output and the gradients of x and of the parameters (gathered).
 """
 import json
 import os
@@ -25,9 +34,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from mmoe_multimodal_rec_tpu_torch.config import Config
+from mmoe_multimodal_rec_tpu_torch.config import Config, ImageEncoderConfig
 from mmoe_multimodal_rec_tpu_torch.models import layers
-from mmoe_multimodal_rec_tpu_torch.parallel.mesh import make_mesh
+from mmoe_multimodal_rec_tpu_torch.models.vit import ViTLayer
+from mmoe_multimodal_rec_tpu_torch.parallel.mesh import (gather_shards,
+                                                         make_mesh,
+                                                         shard_model,
+                                                         take_shard)
 from mmoe_multimodal_rec_tpu_torch.train.checkpoint import CheckpointManager
 from mmoe_multimodal_rec_tpu_torch.train.loop import Trainer
 
@@ -55,6 +68,52 @@ class MaskLog:
 
     def close(self):
         layers.hash_keep_mask, layers.dropout_keep_mask = self._hash, self._attn
+
+
+class SaveLog:
+    """Records every quantised remat save (models/layers.quantize): the
+    integers, the scale and x / scale, in call order."""
+
+    def __init__(self):
+        self.saves = []
+        self._real = layers.quantize
+
+        def quantize(x, bits=8, axis=None):
+            q, sc = self._real(x, bits, axis)
+            self.saves.append({"q": q.clone(), "sc": sc.clone(),
+                               "r": (x.detach().float() / sc).clone(),
+                               "bits": bits})
+            return q, sc
+
+        layers.quantize = quantize
+
+    def close(self):
+        layers.quantize = self._real
+
+
+def unpack_int4(q):
+    """The signed integers of an int4 save, its column halves side by
+    side (models/layers.dequantize's order)."""
+    return torch.cat([(q << 4) >> 4, q >> 4], dim=-1)
+
+
+def vit_layer(image: dict, policy: str, params, x, g, mesh=None):
+    """A float32 ViTLayer (use_flash, so the packed qkv path where the
+    shape admits it) under remat `policy` with the state_dict `params`,
+    sharded over `mesh`'s model axis when given: its training-mode output
+    for x and the gradients of x and of the parameters (whole) from g."""
+    layer = ViTLayer(ImageEncoderConfig(**image), torch.float32,
+                     use_flash=True, remat_policy=policy)
+    layer.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    shardings = shard_model(layer, mesh) if mesh is not None else {}
+    xi = torch.from_numpy(x).requires_grad_(True)
+    out = layer(xi, deterministic=False, rng=torch.Generator().manual_seed(0))
+    out.backward(torch.from_numpy(g))
+    grads = {k: p.grad for k, p in layer.named_parameters()}
+    if mesh is not None:
+        grads = gather_shards(grads, shardings, mesh.model)
+    return (out.detach().numpy(), xi.grad.numpy(),
+            {k: v.numpy() for k, v in grads.items()})
 
 
 def flat_state(state):
@@ -87,6 +146,31 @@ def main(rank: int, world: int, init_file: str, spec_path: str) -> None:
     arrays = np.load(spec["npz"])
     out = {}
     for j, job in enumerate(spec["jobs"]):
+        if job.get("quantize"):
+            mesh = make_mesh(Config.from_dict(job["config"]).train.mesh)
+            x = take_shard(torch.from_numpy(arrays[job["quantize"]]), 1,
+                           mesh.model)
+            for bits in (8, 4):
+                q, sc = layers.quantize(x, bits, mesh.model)
+                out[f"{j}/q{bits}"], out[f"{j}/sc{bits}"] = q.numpy(), \
+                    sc.numpy()
+            continue
+        if job.get("vit_layer"):
+            mesh = make_mesh(Config.from_dict(job["config"]).train.mesh)
+            parts = prefixed(arrays, job["vit_layer"])
+            x, g = parts.pop("x"), parts.pop("g")
+            saves = SaveLog()
+            try:
+                y, gx, grads = vit_layer(job["image"], job["policy"], parts,
+                                         x, g, mesh)
+            finally:
+                saves.close()
+            out[f"{j}/out"], out[f"{j}/gx"] = y, gx
+            out.update({f"{j}/grad/{k}": v for k, v in grads.items()})
+            for i, rec in enumerate(saves.saves):
+                out.update({f"{j}/save/{i}/{k}": np.asarray(v)
+                            for k, v in rec.items()})
+            continue
         cfg = Config.from_dict(job["config"])
         trainer = Trainer(cfg, device="cpu",
                           params=prefixed(arrays, job.get("params")),
@@ -102,12 +186,18 @@ def main(rank: int, world: int, init_file: str, spec_path: str) -> None:
             else:
                 trainer.state_dict()
         log = MaskLog()
+        saves = SaveLog() if job.get("saves") else None
         metrics = []
         try:
             for b in job["batches"]:
                 metrics.append(trainer.run_step(prefixed(arrays, b)))
         finally:
             log.close()
+            if saves is not None:
+                saves.close()
+        for i, rec in enumerate(saves.saves if saves is not None else ()):
+            out.update({f"{j}/save/{i}/{k}": np.asarray(v)
+                        for k, v in rec.items()})
         for i, m in enumerate(log.masks):
             out[f"{j}/mask/{i}"] = m.numpy()
         out[f"{j}/metrics"] = np.array(json.dumps(metrics))
